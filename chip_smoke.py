@@ -22,7 +22,15 @@ Phases, each printing one line:
   8. train: the training step (`train.step`) at full SD1.5 width, 512x640,
      batch 1, bf16 frozen models and fp32 master weights, block remat: one
      warm step, then TRAIN_STEPS timed steps with s/step, peak memory, the
-     loss and gradient norm of each step and each kernel's launches.
+     loss and gradient norm of each step and each kernel's launches;
+  9. parse_check: the SCHP human parser (ATR 512 + LIP 473, ResNet-101 at
+     full width, random weights) on a 200x150 photo on the card and on the
+     CPU with the same weights: the logits of both nets and the parse maps
+     must agree (TF32 off);
+ 10. parse: `Parsing.__call__` at full width on a 1024x768 synthetic person
+     photo, cuDNN's default TF32 convs: one warm call, one counted call
+     (K7's launches), then PARSES timed calls with the median wall time, the
+     device time of both forwards, the host refinement's time, peak memory.
 Then the per-kernel JSON line, the `nvidia-smi` line, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 Without a card, or without the rest of the repository, it exits non-zero.
@@ -44,8 +52,10 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STEPS = 30
 TRAIN_STEPS = 6
+PARSES = 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor cores, same source
+FP32_FLOPS_PER_S = 67e12  # fp32 outside the tensor cores, same source
 TOL = {"bf16": (1e-2, 1e-2), "fp32": (2e-4, 1e-4)}  # atol, rtol * max|ref|
 # the base-2 log-sum-exp: fp32 scores in both versions, so sum order only
 LSE_TOL = 1e-3
@@ -57,6 +67,7 @@ REPLACES = {
     "flash_fwd_res": "imagdressing_tpu/kernels/flash_attention.py:239",
     "flash_bwd_dkv": "imagdressing_tpu/kernels/flash_attention.py:425",
     "flash_bwd_dq": "imagdressing_tpu/kernels/flash_attention.py:507",
+    "bn_act": "imagdressing_tpu/kernels/fused_bn_act.py:75",
 }
 SOURCES = {
     "flash_fwd": "imagdressing_tpu_torch/kernels/csrc/flash_fwd.cu",
@@ -67,6 +78,7 @@ SOURCES = {
     "flash_fwd_res": "imagdressing_tpu_torch/kernels/csrc/flash_fwd.cu",
     "flash_bwd_dkv": "imagdressing_tpu_torch/kernels/csrc/flash_bwd.cu",
     "flash_bwd_dq": "imagdressing_tpu_torch/kernels/csrc/flash_bwd.cu",
+    "bn_act": "imagdressing_tpu_torch/kernels/csrc/bn_act.cu",
 }
 
 
@@ -180,6 +192,44 @@ def group_norm_case(shape, act, dtype, seed):
                 plain=lambda: fg.group_norm_act_plain(x, w, bb, **kw),
                 library=library, flops=0.0, bytes=2.0 * x.numel()
                 * x.element_size())
+
+
+def bn_act_case(shape, act, dtype, seed):
+    """K7 at an SCHP shape; library: F.batch_norm (eval) + the activation,
+    two calls the port never makes."""
+    import torch
+    import torch.nn.functional as F
+
+    from imagdressing_tpu_torch.kernels import fused_bn_act as fba
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[-1]
+
+    def rnd(n, scale, offset=0.0):
+        return torch.randn(n, generator=gen, device="cuda") * scale + offset
+
+    x = (2 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+    params = (rnd(c, 0.3, 1.0), rnd(c, 0.3), rnd(c, 0.5),
+              torch.rand(c, generator=gen, device="cuda") * 1.7 + 0.3)
+    x_nchw = x.permute(0, 3, 1, 2)
+    acts = {"none": lambda y: y, "elu": F.elu,
+            "leaky_relu": lambda y: F.leaky_relu(y, 0.01)}
+
+    def library():
+        w, b, mean, var = (p.to(dtype) for p in params)
+        return acts[act](F.batch_norm(x_nchw, mean, var, w, b, False, 0.0,
+                                      1e-5))
+
+    kw = dict(activation=act)
+    # one read of x and one write of y; mul, add and the activation per
+    # element on the fp32 CUDA cores
+    # graph=True: a launch moves ~10 us of data behind more host time, so
+    # its device time comes from CUDA-graph replays (eager times beside it)
+    return dict(kernel=lambda: fba.abn_inference(x, *params, **kw),
+                plain=lambda: fba.abn_inference_plain(x, *params, **kw),
+                library=library, graph=True, flops=3.0 * x.numel(),
+                flops_per_s=FP32_FLOPS_PER_S,
+                bytes=2.0 * x.numel() * x.element_size() + 16.0 * c)
 
 
 def _flash_train_inputs(b, s, h, d, dual, scale, dtype, seed):
@@ -387,6 +437,19 @@ def check_cases():
                   gn_conv_grad_case))
     cases.append(("group_norm_act.grad", "1x80x64x320none",
                   group_norm_grad_case))
+    # K7 at SCHP's shapes (ATR 512 unless noted): the stem, layer3, the
+    # decoder's 48 channels, PSP maps of 36 and 1 rows, LIP's 237x237 stem,
+    # the decoder/fusion width, and the elu the TPU kernel also computes
+    for shape, act in [((1, 256, 256, 128), "none"),
+                       ((1, 32, 32, 1024), "none"),
+                       ((1, 128, 128, 48), "leaky_relu"),
+                       ((1, 6, 6, 512), "leaky_relu"),
+                       ((1, 1, 1, 512), "leaky_relu"),
+                       ((1, 237, 237, 64), "none"),
+                       ((1, 128, 128, 256), "leaky_relu"),
+                       ((1, 60, 60, 256), "elu")]:
+        cases.append(("bn_act", "x".join(map(str, shape)) + act,
+                      lambda dt, sd, a=(shape, act): bn_act_case(*a, dt, sd)))
     return cases
 
 
@@ -405,11 +468,15 @@ TIMED = {"flash_fwd": "2x5120x8x40dual",
          "group_norm_act": "2x5120x320none",
          "flash_fwd_res": "1x5120x8x40dual",
          "flash_bwd_dkv": "1x5120x8x40dual",
-         "flash_bwd_dq": "1x5120x8x40dual"}
+         "flash_bwd_dq": "1x5120x8x40dual",
+         "bn_act": "1x128x128x256leaky_relu"}
+# the dtype each kernel is timed in: bf16 on the dressing paths, fp32 on
+# the parsing path (the JAX package feeds SCHP float32)
+TIMED_DTYPE = {"bn_act": "fp32"}
 
 
 def phase_check():
-    """Returns each kernel's bf16 max abs error at its TIMED shape."""
+    """Returns each kernel's max abs error at its TIMED shape and dtype."""
     import torch
 
     dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
@@ -442,8 +509,8 @@ def phase_check():
                     emit("check", kernel=kernel, shape=label, dtype=dn,
                          output=out, max_abs_err=err, max_abs_ref=ref,
                          tol=tol, ok=ok)
-                    if dn == "bf16" and label == TIMED.get(kernel) \
-                            and out != "lse":
+                    if dn == TIMED_DTYPE.get(kernel, "bf16") \
+                            and label == TIMED.get(kernel) and out != "lse":
                         errs[kernel] = max(errs.get(kernel, 0.0), err)
                     if not ok:
                         raise SmokeFailure(f"{what}: max abs err {err:.4g} "
@@ -457,24 +524,34 @@ def phase_check():
 def phase_time():
     import torch
 
-    from imagdressing_tpu_torch.tools.timing import cuda_ms
+    from imagdressing_tpu_torch.tools.timing import cuda_graph_ms, cuda_ms
 
     by_label = {(n, lbl): b for n, lbl, b in check_cases()}
     for part in ("dkv", "dq"):
         by_label[(f"flash_bwd_{part}", "1x5120x8x40dual")] = (
             lambda dt, sd, p=part: flash_bwd_case(1, 5120, 8, 40, True, [1.0],
                                                   dt, sd, part=p))
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
     timings = {}
     for name, label in TIMED.items():
-        case = by_label[(name, label)](torch.bfloat16, 1000)
+        dn = TIMED_DTYPE.get(name, "bf16")
+        case = by_label[(name, label)](dtypes[dn], 1000)
         ms = cuda_ms(case["kernel"])
         plain_ms = cuda_ms(case["plain"])
         library_ms = cuda_ms(case["library"])
+        eager = {}
+        if case.get("graph"):
+            eager = dict(eager_ms=ms, eager_plain_ms=plain_ms,
+                         eager_library_ms=library_ms)
+            ms, plain_ms, library_ms = (cuda_graph_ms(case[k]) for k in
+                                        ("kernel", "plain", "library"))
         t_bytes = case["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = case["flops"] / BF16_FLOPS_PER_S * 1e3
-        row = dict(shape=label, ms=ms, plain_ms=plain_ms,
+        t_ops = case["flops"] / case.get("flops_per_s",
+                                         BF16_FLOPS_PER_S) * 1e3
+        row = dict(shape=label, dtype=dn, ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
-                   bound_by="operations" if t_ops > t_bytes else "bytes")
+                   bound_by="operations" if t_ops > t_bytes else "bytes",
+                   **eager)
         timings[name] = row
         emit("time", kernel=name, **row)
         del case
@@ -781,6 +858,131 @@ def phase_train(counters):
     return launches
 
 
+def _check_parse_contract(parse, face, hw):
+    import numpy as np
+
+    if parse.shape != hw or parse.dtype != np.uint8:
+        raise SmokeFailure(f"parse map {parse.shape} {parse.dtype}")
+    if face.shape != hw or face.dtype != np.float32:
+        raise SmokeFailure(f"face mask {face.shape} {face.dtype}")
+    if parse.max() > 18:  # ATR's 0-17 and the neck label 18
+        raise SmokeFailure(f"labels {np.unique(parse)}")
+    if not np.array_equal(face, (parse == 11).astype(np.float32)):
+        raise SmokeFailure("face mask is not the face label")
+
+
+# logits of the full-width parser, card (TF32 off) vs CPU: fp32 sum-order
+# differences through 100+ cuDNN convs, relative to max|ref| (~1e4)
+PARSE_RTOL = 1e-3
+PARSE_AGREE = 0.999
+
+
+def phase_parse_check():
+    """The full-width parser on a 200x150 photo, on the card and on the CPU
+    (K7's plain version) with the same weights: both nets' logits (the
+    nets still run at 512 and 473) and the parse maps."""
+    import numpy as np
+    import torch
+
+    from imagdressing_tpu_torch.preprocess.parsing import infer as pinf
+    from imagdressing_tpu_torch.tools.profile_parse import person_photo
+
+    cpu = pinf.Parsing.init_random(0, device="cpu")
+    gpu = pinf.Parsing(copy.deepcopy(cpu.atr), copy.deepcopy(cpu.lip))
+    img = person_photo(200, 150, 1)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    errs = {}
+    try:
+        for name, n, size in (("atr", 18, 512), ("lip", 20, 473)):
+            want = cpu.logits(torch.from_numpy(img), getattr(cpu, name), n,
+                              size)
+            got = gpu.logits(torch.from_numpy(img).cuda(),
+                             getattr(gpu, name), n, size).cpu()
+            ref = want.abs().max().item()
+            errs[name] = dict(max_abs_err=(got - want).abs().max().item(),
+                              max_abs_ref=ref, tol=PARSE_RTOL * ref,
+                              finite=bool(torch.isfinite(got).all()))
+        t0 = time.perf_counter()
+        want, want_face = cpu(img)
+        cpu_s = time.perf_counter() - t0
+        got, face = gpu(img)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    _check_parse_contract(got, face, img.shape[:2])
+    agree = float((got == want).mean())
+    ok = agree >= PARSE_AGREE and all(
+        e["finite"] and e["max_abs_err"] <= e["tol"] for e in errs.values())
+    emit("parse_check", photo="200x150", logits=errs, parse_agree=agree,
+         agree_min=PARSE_AGREE, cpu_call_s=cpu_s,
+         labels=sorted(int(v) for v in np.unique(got)), ok=ok)
+    if not ok:
+        raise SmokeFailure(f"parser card vs CPU: {errs}, agree {agree}")
+
+
+def phase_parse(counter):
+    """`Parsing.__call__` at full width (ResNet-101 SCHP, ATR 512 + LIP
+    473, fp32, cuDNN's default TF32 convs) on a 1024x768 photo."""
+    import numpy as np
+    import torch
+
+    from imagdressing_tpu_torch.preprocess.parsing import infer as pinf
+    from imagdressing_tpu_torch.tools.profile_parse import person_photo
+
+    t0 = time.perf_counter()
+    parsing = pinf.Parsing.init_random(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    img = person_photo(1024, 768, 0)
+    t0 = time.perf_counter()
+    parse, face = parsing(img)
+    first_s = time.perf_counter() - t0
+    _check_parse_contract(parse, face, img.shape[:2])
+    image = torch.from_numpy(img).cuda()
+    finite = {name: bool(torch.isfinite(parsing.logits(
+                  image, getattr(parsing, name), n, size)).all())
+              for name, n, size in (("atr", 18, 512), ("lip", 20, 473))}
+    if not all(finite.values()):
+        raise SmokeFailure(f"non-finite parser logits: {finite}")
+
+    # the counted run: one call, counts reset just before, read just after
+    counter.reset()
+    again, _ = parsing(img)
+    launches = counter.count
+    by_shape = {str(k): v for k, v in counter.by_shape.items()}
+    # K7's least time over the whole parse: each launch reads x and writes y
+    bound_ms = sum(2.0 * 4 * math.prod(shape) * n
+                   for (shape, _, _), n in counter.by_shape.items()
+                   ) / HBM_BYTES_PER_S * 1e3
+    if not np.array_equal(again, parse):
+        raise SmokeFailure("the same photo gave another parse map")
+
+    torch.cuda.reset_peak_memory_stats()
+    wall, device, refine = [], [], []
+    for _ in range(PARSES):
+        t0 = time.perf_counter()
+        parsing(img)
+        wall.append(time.perf_counter() - t0)
+        device.append(parsing.last_device_ms)
+        refine.append(parsing.last_stage_seconds["refine"])
+
+    def median(v):
+        return sorted(v)[len(v) // 2]
+
+    emit("parse", photo="1024x768", nets="ATR 512 + LIP 473, fp32",
+         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32, init_s=init_s,
+         first_call_s=first_s, call_s=median(wall), call_s_all=wall,
+         device_ms={k: median([d[k] for d in device]) for k in device[0]},
+         device_ms_all=device, refine_s=median(refine),
+         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+         bn_act_launches=launches, bn_act_bound_ms_per_parse=bound_ms,
+         bn_act_by_shape=by_shape,
+         labels=sorted(int(v) for v in np.unique(parse)))
+    if launches != 238:  # 119 InPlaceABNs in each of the two nets
+        raise SmokeFailure(f"K7 launched {launches} times in one parse")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -792,6 +994,7 @@ def main() -> int:
         from imagdressing_tpu_torch.kernels import (
             _build,
             flash_attention as fa,
+            fused_bn_act as fba,
             fused_gn_conv as fgc,
             fused_groupnorm as fg,
         )
@@ -813,6 +1016,7 @@ def main() -> int:
         errs = phase_check()
         phase_mini()
         phase_mini_train()
+        phase_parse_check()
         timings = phase_time()
         counts = phase_main({"flash_fwd": fa.COUNTER,
                              "gn_silu_conv3x3": fgc.COUNTER,
@@ -823,6 +1027,7 @@ def main() -> int:
                              "flash_fwd_res": fa.RES_COUNTER,
                              "flash_bwd_dkv": fa.DKV_COUNTER,
                              "flash_bwd_dq": fa.DQ_COUNTER})
+        counts["bn_act"] = phase_parse(fba.COUNTER)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1

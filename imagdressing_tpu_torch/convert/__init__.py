@@ -62,6 +62,15 @@ def state_dict_from_jax(tree: Any) -> StateDict:
     return dict(_convert_leaf(p, a) for p, a in _leaves(tree))
 
 
+def parsing_params_from_jax(atr_tree: Any, lip_tree: Any
+                            ) -> Tuple[StateDict, StateDict]:
+    """The JAX SCHP trees (`preprocess.parsing.model.init` / `convert_torch`)
+    of the ATR and LIP nets -> two `preprocess.parsing.model.SCHP` state
+    dicts. The module's paths follow the tree's keys (BN `running_mean` /
+    `running_var` included), so each leaf maps by its path."""
+    return state_dict_from_jax(atr_tree), state_dict_from_jax(lip_tree)
+
+
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, StateDict]:
     """JAX `DressingModels.params` -> {model name: state dict}, with the
     model names of the JAX tree (unet, ref_unet, ref_adapters, resampler,

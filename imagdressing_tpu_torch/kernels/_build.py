@@ -25,7 +25,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "gn_conv.cu", "groupnorm.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "gn_conv.cu", "groupnorm.cu",
+           "bn_act.cu")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",

@@ -4,7 +4,7 @@
 One module serves both roles: the main UNet (`forward(..., cond)` with
 dual-KV self-attention) and the garment UNet (`forward(..., capture=True)`,
 which also returns every self-attention layer's input). Module attribute
-names follow the JAX parameter tree, so `convert.py` maps one path to one
+names follow the JAX parameter tree, so `convert` maps one path to one
 state-dict key.
 
 Kernels on this path: every resnet GN+SiLU+conv3x3 (K2,

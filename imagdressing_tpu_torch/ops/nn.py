@@ -40,10 +40,11 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None, *, stride: int = 1,
-           padding: Padding = 0) -> torch.Tensor:
+           padding: Padding = 0, dilation: int = 1) -> torch.Tensor:
     """NHWC conv with an OIHW (channels_last) weight. `padding` is an int or
     explicit ((top, bottom), (left, right)); the VAE downsampler uses the
-    asymmetric ((0, 1), (0, 1))."""
+    asymmetric ((0, 1), (0, 1)). `dilation` spaces the taps (SCHP's layer4
+    runs its 3x3 convs at dilation 2, padding 2)."""
     if not isinstance(padding, int):
         (top, bottom), (left, right) = padding
         if top == bottom and left == right and top == left:
@@ -52,7 +53,7 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
             x = F.pad(x, (0, 0, left, right, top, bottom))
             padding = 0
     y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, stride=stride,
-                 padding=padding)
+                 padding=padding, dilation=dilation)
     return y.permute(0, 2, 3, 1)
 
 
@@ -201,10 +202,11 @@ class Conv2d(nn.Module):
     """NHWC conv; weight OIHW in channels_last memory."""
 
     def __init__(self, cin: int, cout: int, k: int, *, stride: int = 1,
-                 padding: Padding = 0, bias: bool = True):
+                 padding: Padding = 0, dilation: int = 1, bias: bool = True):
         super().__init__()
         self.stride = stride
         self.padding = padding
+        self.dilation = dilation
         self.weight = nn.Parameter(
             torch.empty(cout, cin, k, k).contiguous(
                 memory_format=torch.channels_last))
@@ -220,7 +222,7 @@ class Conv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv2d(x, self.weight, self.bias, stride=self.stride,
-                      padding=self.padding)
+                      padding=self.padding, dilation=self.dilation)
 
 
 class Upsample2xConv(nn.Module):

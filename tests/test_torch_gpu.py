@@ -1,12 +1,13 @@
-"""The port's CUDA kernels, pipeline and training step on a card (marker
-`gpu`).
+"""The port's CUDA kernels, pipeline, training step and human parser on a
+card (marker `gpu`).
 
 Each kernel is held against its plain PyTorch version on the same device at
-one shape of the main paths (512x640, SD1.5 widths), every wrapper returns a
-tensor with a grad_fn when a gradient is needed, the full-width `basic`
-pipeline runs a few steps and the full-width training step two. Whether a card is present is decided in
-the `cuda` fixture, so every worker collects the same tests; without a card
-they skip. This file imports no JAX: on the card's machine run it with
+one shape of the main paths (512x640, SD1.5 widths; SCHP's ragged shapes
+for K7), every wrapper returns a tensor with a grad_fn when a gradient is
+needed, the full-width `basic` pipeline runs a few steps, the full-width
+training step two, and the full-width human parser one call. Whether a card
+is present is decided in the `cuda` fixture, so every worker collects the
+same tests; without a card they skip. This file imports no JAX: on the card's machine run it with
 
     python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 """
@@ -18,6 +19,7 @@ import torch
 from imagdressing_tpu_torch.core.config import PRESETS, TrainConfig
 from imagdressing_tpu_torch.kernels import (
     flash_attention as fa,
+    fused_bn_act as fba,
     fused_gn_conv as fgc,
     fused_groupnorm as fg,
 )
@@ -25,6 +27,7 @@ from imagdressing_tpu_torch.pipelines.dressing import (
     DressingModels,
     DressingPipeline,
 )
+from imagdressing_tpu_torch.preprocess.parsing.infer import Parsing
 from imagdressing_tpu_torch.train import step as tstep
 
 pytestmark = pytest.mark.gpu
@@ -199,3 +202,49 @@ def test_full_width_training_step_runs_through_the_kernels(cuda):
         assert np.isfinite(float(metrics["loss"]))
         assert np.isfinite(float(metrics["grad_norm"]))
     assert all(c.count > 0 for c in counters)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,act", [((1, 237, 237, 48), "leaky_relu"),
+                                       ((1, 3, 3, 512), "none"),
+                                       ((1, 1, 1, 2048), "elu")])
+def test_bn_act_kernel_matches_plain(cuda, shape, act, dtype):
+    """K7 at ragged shapes: an odd row count with C = 48 (six bf16
+    vectors), a PSP map of 9 rows, a single row."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    c = shape[-1]
+    x = _randn(gen, shape, dtype, 2.0)
+    params = (1 + _randn(gen, (c,), torch.float32, 0.3),
+              _randn(gen, (c,), torch.float32, 0.3),
+              _randn(gen, (c,), torch.float32, 0.5),
+              torch.rand(c, generator=gen, device="cuda") + 0.3)
+    n0 = fba.COUNTER.count
+    got = fba.abn_inference(x, *params, activation=act)
+    want = fba.abn_inference_plain(x, *params, activation=act)
+    torch.cuda.synchronize()
+    assert fba.COUNTER.count == n0 + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    _close(got, want, dtype)
+
+
+def test_bn_act_refuses_a_non_contiguous_input(cuda):
+    x = torch.randn((1, 8, 8, 64), device="cuda")
+    p = torch.ones(64, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        fba.abn_inference(x.transpose(1, 2), p, p, p, p)
+
+
+def test_full_width_parsing_returns_the_contract(cuda):
+    """The SCHP parser at full width (ATR 512 + LIP 473) on a 200x150
+    photo: a uint8 map with labels 0-18, the face mask of label 11, and
+    K7 launched at all 2 x 119 InPlaceABNs."""
+    parsing = Parsing.init_random(0)
+    img = np.random.default_rng(0).integers(0, 256, (200, 150, 3), np.uint8)
+    fba.COUNTER.reset()
+    parse, face = parsing(img)
+    assert parse.shape == (200, 150) and parse.dtype == np.uint8
+    assert face.shape == (200, 150) and face.dtype == np.float32
+    assert parse.max() <= 18
+    assert np.array_equal(face, (parse == 11).astype(np.float32))
+    assert fba.COUNTER.count == 238
+    assert set(parsing.last_device_ms) == {"atr", "lip"}
