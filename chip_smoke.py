@@ -7,15 +7,19 @@ Phases, each printing one line:
      csrc` with one nvcc per source, all at once;
   3. check: every kernel against its plain PyTorch version on the card, in
      bf16 and fp32, at the main paths' shapes: the inference kernels, the
-     training forward with residuals and both backward kernels, and the
-     gradients of the GN+conv and GroupNorm autograd Functions;
+     training forward with residuals and both backward kernels (with K6b's
+     D_i, and at ragged lengths), and the gradients of the GN+conv and
+     GroupNorm autograd Functions; then determinism: the backward pair twice
+     on the same inputs must give bit-identical results;
   4. mini: a small fp32 stack run end to end on the card and on the CPU (the
      CPU runs every kernel's plain version): the outputs must agree;
   5. mini_train: two training steps of the same small stack on the card and
      on the CPU with the same random draws: losses, gradient norms and the
      trained weights must agree;
   6. time: each kernel's CUDA-event time at a main-path shape, beside its
-     plain version's, the PyTorch library call's, and the card's bound;
+     plain version's, the PyTorch library call's, and the card's bound
+     (bytes, tensor-core FLOPs, and for the flash kernels exp2 per (q, k)
+     pair); the backward pair's time beside its function's bound;
   7. main: the `basic` preset through DressingModels / DressingPipeline at
      full SD1.5 width, 512x640, bf16, 30 DDIM steps, with per-stage wall
      times, peak memory, and each kernel's launches in that run;
@@ -59,6 +63,12 @@ FP32_FLOPS_PER_S = 67e12  # fp32 outside the tensor cores, same source
 TOL = {"bf16": (1e-2, 1e-2), "fp32": (2e-4, 1e-4)}  # atol, rtol * max|ref|
 # the base-2 log-sum-exp: fp32 scores in both versions, so sum order only
 LSE_TOL = 1e-3
+# K6b's D_i: fp32 sums of D products of the same inputs in both versions,
+# so sum order only (atol, rtol * max|ref|)
+DELTA_TOL = (1e-5, 1e-5)
+# exp2 per clock per SM (the special-function units), H100
+EXP2_PER_CLOCK_PER_SM = 16
+SMS = 132
 REPLACES = {
     "flash_fwd": "imagdressing_tpu/kernels/flash_attention.py:98",
     "gn_silu_conv3x3": "imagdressing_tpu/kernels/fused_gn_conv.py:55",
@@ -90,11 +100,17 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def exp2_per_ms() -> float:
+    """The card's exp2 rate per ms at its maximum SM clock."""
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    return SMS * EXP2_PER_CLOCK_PER_SM * mhz * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -114,7 +130,8 @@ def flash_case(b, s, h, d, dual, dtype, seed):
     if dual:
         args += (torch.tensor([0.0, 1.0][:b] if b == 2 else [1.0] * b,
                               device="cuda"),)
-    # 4*S*S*D flops per (b, h) and source; rows with scale 0 skip the ref pass
+    # 4*S*S*D flops and S*S exp2 per (b, h) and source; rows with scale 0
+    # skip the ref pass
     sources = b + (int((args[-1] != 0).sum()) if dual else 0)
     flops = 4.0 * sources * h * s * s * d
     nbytes = sum(x.numel() * x.element_size() for x in t) \
@@ -131,7 +148,8 @@ def flash_case(b, s, h, d, dual, dtype, seed):
 
     return dict(kernel=lambda: fa.flash_attention(*args),
                 plain=lambda: fa.flash_attention_plain(*args),
-                library=library, flops=flops, bytes=nbytes)
+                library=library, flops=flops, bytes=nbytes,
+                exp2=float(sources * h * s * s))
 
 
 def gn_conv_case(b, h, w, cin, co, with_add, dtype, seed):
@@ -232,12 +250,15 @@ def bn_act_case(shape, act, dtype, seed):
                 bytes=2.0 * x.numel() * x.element_size() + 16.0 * c)
 
 
-def _flash_train_inputs(b, s, h, d, dual, scale, dtype, seed):
+def _flash_train_inputs(b, s, h, d, dual, scale, dtype, seed, lengths=None):
+    """(q, k, v, k_ref, v_ref, scale) and g; `lengths` (Sq, Skv, Sref) for
+    ragged sequences, else all s."""
     import torch
 
+    sq, skv, sref = lengths or (s, s, s)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    t = [torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
-         for _ in range(6 if dual else 4)]
+    t = [torch.randn((b, n, h, d), generator=gen, device="cuda").to(dtype)
+         for n in (sq, skv, skv) + ((sref, sref) if dual else ()) + (sq,)]
     g = t.pop()
     sc = torch.tensor(scale, device="cuda") if dual else None
     args = (*t, *((None, None) if not dual else ()), sc)
@@ -277,28 +298,36 @@ def flash_res_case(b, s, h, d, dual, scale, dtype, seed):
                 plain=lambda: fa.flash_attention_res_plain(*args),
                 library=library, outputs=("out", "lse", "o2"),
                 flops=_flash_train_flops(b, s, h, d, dual, 2),
-                bytes=nbytes)
+                bytes=nbytes, exp2=float(b * h * s * s * (2 if dual else 1)))
 
 
-def flash_bwd_case(b, s, h, d, dual, scale, dtype, seed, part=None):
-    """K6a + K6b (part None), or one of them ("dkv" / "dq", timing), on the
-    plain version's residuals; library: the backward of two SDPA calls."""
+def flash_bwd_case(b, s, h, d, dual, scale, dtype, seed, part=None,
+                   lengths=None):
+    """K6b + K6a (part None): the five gradients and K6b's D_i against the
+    plain versions, on the plain version's residuals; or one of them
+    ("dkv" / "dq", timing; K6a alone reads a D_i that K6b wrote once).
+    Library: the backward of two SDPA calls."""
     import torch
 
     from imagdressing_tpu_torch.kernels import flash_attention as fa
 
-    args, g = _flash_train_inputs(b, s, h, d, dual, scale, dtype, seed)
+    args, g = _flash_train_inputs(b, s, h, d, dual, scale, dtype, seed,
+                                  lengths)
     res = fa.flash_attention_res_plain(*args)
     item = args[0].element_size()
     n = b * s * h * d
     # read: q, k, v (, k_ref, v_ref), g, out (, o2) and the fp32 lse;
-    # written: dk, dv (, dk_ref, dv_ref) or dq
-    ins = item * n * ((5 if dual else 3) + 2 + (1 if dual else 0)) \
-        + 4 * b * h * s * (2 if dual else 1)
-    nbytes = {"dkv": ins + item * n * (4 if dual else 2),
-              "dq": ins + item * n}
+    # written: dk, dv (, dk_ref, dv_ref) or dq; the fp32 D_i written by K6b
+    # and read by K6a
+    stats = 4 * b * h * s * (2 if dual else 1)
+    ins = item * n * ((5 if dual else 3) + 2 + (1 if dual else 0)) + stats
+    nbytes = {"dkv": ins + stats + item * n * (4 if dual else 2),
+              "dq": ins + stats + item * n}
     flops = {"dkv": _flash_train_flops(b, s, h, d, dual, 4),
              "dq": _flash_train_flops(b, s, h, d, dual, 3)}
+    # one exp2 per (q, k) pair and source run (scale-0 rows skip theirs)
+    sources = b + (sum(x != 0 for x in scale) if dual else 0)
+    exp2 = float(sources * h * s * s)
     lib_in = [x.detach().transpose(1, 2).requires_grad_()
               for x in args[:(5 if dual else 3)]]
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -311,17 +340,27 @@ def flash_bwd_case(b, s, h, d, dual, scale, dtype, seed, part=None):
     def library():
         return torch.autograd.grad(lib_out, lib_in, lib_g, retain_graph=True)
 
-    if part is None:
-        kernel = lambda: fa.flash_attention_bwd(*args, *res, g)  # noqa: E731
-    else:
+    def kernel():
+        grads, delta = fa._launch_bwd(*args, *res, g)
+        return (*grads, delta)
+
+    def plain():
+        return (*fa.flash_attention_bwd_plain(*args, *res, g),
+                fa.flash_attention_delta_plain(g, res[0], res[2], args[5]))
+
+    if part == "dq":
         kernel = lambda: fa._launch_bwd(*args, *res, g,  # noqa: E731
-                                        parts=(part,))
-    return dict(kernel=kernel,
-                plain=lambda: fa.flash_attention_bwd_plain(*args, *res, g),
-                library=library,
-                outputs=("dq", "dk", "dv", "dk_ref", "dv_ref"),
+                                        parts=("dq",))
+    elif part == "dkv":
+        delta = fa._launch_bwd(*args, *res, g, parts=("dq",))[1]
+        kernel = lambda: fa._launch_bwd(*args, *res, g,  # noqa: E731
+                                        parts=("dkv",), delta=delta)
+    return dict(kernel=kernel, plain=plain, library=library,
+                outputs=("dq", "dk", "dv", "dk_ref", "dv_ref", "delta"),
                 flops=flops[part] if part else sum(flops.values()),
-                bytes=nbytes[part] if part else sum(nbytes.values()))
+                bytes=nbytes[part] if part else sum(nbytes.values()),
+                exp2=exp2 if part else 2 * exp2,
+                flops_5=_flash_train_flops(b, s, h, d, dual, 5))
 
 
 def _grad_case(fn, plain, leaves, g):
@@ -433,6 +472,14 @@ def check_cases():
         cases.append(("flash_bwd", label,
                       lambda dt, sd, a=(b, s_, h, d, dual, scale):
                       flash_bwd_case(*a, dt, sd)))
+    # ragged lengths (Sq, Skv, Sref) of the CPU test of the Function's
+    # gradients: masked sequence edges, zero-filled D padding at D = 40
+    for (sq, skv, sref), d in [((100, 100, 37), 40), ((80, 77, 130), 40),
+                               ((100, 100, 37), 160), ((80, 77, 130), 160)]:
+        cases.append(("flash_bwd", f"2x{sq}/{skv}/{sref}x2x{d}dual[0,0.7]",
+                      lambda dt, sd, a=(sq, skv, sref), d=d:
+                      flash_bwd_case(2, a[0], 2, d, True, [0.0, 0.7], dt, sd,
+                                     lengths=a)))
     cases.append(("gn_silu_conv3x3.grad", "1x80x64x320->320+add",
                   gn_conv_grad_case))
     cases.append(("group_norm_act.grad", "1x80x64x320none",
@@ -455,6 +502,7 @@ def check_cases():
 
 # which kernel computes each output of the multi-output cases
 OUTPUT_KERNEL = {("flash_bwd", "dq"): "flash_bwd_dq",
+                 ("flash_bwd", "delta"): "flash_bwd_dq",
                  ("flash_bwd", "dk"): "flash_bwd_dkv",
                  ("flash_bwd", "dv"): "flash_bwd_dkv",
                  ("flash_bwd", "dk_ref"): "flash_bwd_dkv",
@@ -503,7 +551,8 @@ def phase_check():
                         raise SmokeFailure(f"{what}: {a} vs {b}")
                     err = (a.float() - b.float()).abs().max().item()
                     ref = b.float().abs().max().item()
-                    atol, rtol = (LSE_TOL, 0.0) if out == "lse" else TOL[dn]
+                    atol, rtol = {"lse": (LSE_TOL, 0.0),
+                                  "delta": DELTA_TOL}.get(out, TOL[dn])
                     tol = atol + rtol * ref
                     ok = math.isfinite(err) and err <= tol
                     emit("check", kernel=kernel, shape=label, dtype=dn,
@@ -521,7 +570,29 @@ def phase_check():
     return errs
 
 
+def phase_determinism():
+    """K6b + K6a twice on the same inputs at the main shape: bit-identical
+    gradients and D_i (no atomics, a fixed summation order)."""
+    import torch
+
+    case = flash_bwd_case(1, 5120, 8, 40, True, [1.0], torch.bfloat16, 7)
+    first = case["kernel"]()
+    second = case["kernel"]()
+    torch.cuda.synchronize()
+    same = {out: bool(torch.equal(a, b)) for out, a, b in
+            zip(case["outputs"], first, second) if a is not None}
+    emit("determinism", shape="1x5120x8x40dual", dtype="bf16",
+         bit_equal=same, ok=all(same.values()))
+    if not all(same.values()):
+        raise SmokeFailure(f"K6 repeat not bit-identical: {same}")
+
+
 def phase_time():
+    """Each kernel's time at its TIMED shape beside its plain version's, the
+    library call's and its bound: the larger of its bytes over the HBM rate
+    and its operations over the rate of their unit (tensor-core FLOPs; for
+    the flash kernels also one exp2 per (q, k) pair and source on the
+    special-function units, at the card's maximum SM clock)."""
     import torch
 
     from imagdressing_tpu_torch.tools.timing import cuda_graph_ms, cuda_ms
@@ -532,6 +603,7 @@ def phase_time():
             lambda dt, sd, p=part: flash_bwd_case(1, 5120, 8, 40, True, [1.0],
                                                   dt, sd, part=p))
     dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    exp2_rate = exp2_per_ms()
     timings = {}
     for name, label in TIMED.items():
         dn = TIMED_DTYPE.get(name, "bf16")
@@ -545,16 +617,34 @@ def phase_time():
                          eager_library_ms=library_ms)
             ms, plain_ms, library_ms = (cuda_graph_ms(case[k]) for k in
                                         ("kernel", "plain", "library"))
-        t_bytes = case["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = case["flops"] / case.get("flops_per_s",
-                                         BF16_FLOPS_PER_S) * 1e3
+        terms = {"bytes": case["bytes"] / HBM_BYTES_PER_S * 1e3,
+                 "tensor": case["flops"] / case.get("flops_per_s",
+                                                    BF16_FLOPS_PER_S) * 1e3,
+                 "exp2": case.get("exp2", 0.0) / exp2_rate}
+        unit = max(terms, key=terms.get)
         row = dict(shape=label, dtype=dn, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
-                   bound_by="operations" if t_ops > t_bytes else "bytes",
-                   **eager)
+                   library_ms=library_ms, bound_ms=terms[unit],
+                   bound_by="bytes" if unit == "bytes" else "operations",
+                   bound_unit=unit, bound_terms_ms=terms, **eager)
         timings[name] = row
         emit("time", kernel=name, **row)
         del case
+    # the pair K6b + K6a in one call, beside the function's own bound: 5
+    # products per (q, k) pair (dQ, dK, dV, S and dP once each) and one exp2
+    case = by_label[("flash_bwd", "1x5120x8x40dual")](torch.bfloat16, 1000)
+    pair_ms = cuda_ms(case["kernel"])
+    emit("time_pair", kernels=["flash_bwd_dq", "flash_bwd_dkv"],
+         shape="1x5120x8x40dual", dtype="bf16", ms=pair_ms,
+         sum_of_kernels_ms=timings["flash_bwd_dq"]["ms"]
+         + timings["flash_bwd_dkv"]["ms"],
+         library_ms=timings["flash_bwd_dq"]["library_ms"],
+         kernel_bounds_ms={k: timings[k]["bound_ms"]
+                           for k in ("flash_bwd_dq", "flash_bwd_dkv")},
+         function_bound_ms=max(case["flops_5"] / BF16_FLOPS_PER_S * 1e3,
+                               case["exp2"] / 2 / exp2_rate),
+         function_bound_terms_ms={
+             "tensor_5_products": case["flops_5"] / BF16_FLOPS_PER_S * 1e3,
+             "exp2_once": case["exp2"] / 2 / exp2_rate})
     return timings
 
 
@@ -836,6 +926,10 @@ def phase_train(counters):
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
     launches = {name: c.count for name, c in counters.items()}
+    # K6b and K6a per (b, sq, h, d, dual) and step
+    bwd_by_shape = {name: {str(k): n / TRAIN_STEPS
+                           for k, n in counters[name].by_shape.items()}
+                    for name in ("flash_bwd_dq", "flash_bwd_dkv")}
     peak = torch.cuda.max_memory_allocated()
     moved = {name: a != b for (name, a), b in
              zip(_sums(state.params).items(), train_before.values())}
@@ -845,10 +939,12 @@ def phase_train(counters):
          step_s=seconds, losses=losses, grad_norms=norms,
          peak_gib=peak / 2**30, launches=launches,
          launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
-         trainables_moved=moved)
+         flash_bwd_per_step_by_shape=bwd_by_shape, trainables_moved=moved)
     zero = [k for k, n in launches.items() if n == 0]
     if zero:
         raise SmokeFailure(f"kernels never launched in training: {zero}")
+    if bwd_by_shape["flash_bwd_dq"] != bwd_by_shape["flash_bwd_dkv"]:
+        raise SmokeFailure(f"K6b and K6a launched apart: {bwd_by_shape}")
     if not all(math.isfinite(x) for x in losses + norms):
         raise SmokeFailure(f"non-finite loss or grad norm: {losses} {norms}")
     if not all(moved.values()):
@@ -1014,6 +1110,7 @@ def main() -> int:
 
     try:
         errs = phase_check()
+        phase_determinism()
         phase_mini()
         phase_mini_train()
         phase_parse_check()

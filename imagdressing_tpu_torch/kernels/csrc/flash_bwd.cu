@@ -17,36 +17,71 @@
 // kernels feed the MXU.
 //
 // Bound on the H100: at D = 40..160 the four (dK/dV) and three (dQ) tensor-
-// core products per (q, k) pair and the exp2 per pair are far above the bytes
-// of q, k, v, g, O, O2 and the gradients, so both kernels are bound by
-// operations.
+// core products per (q, k) pair and the exp2 per pair (16 per clock per SM)
+// are far above the bytes of q, k, v, g, O, O2 and the gradients, so both
+// kernels are bound by operations: tensor cores and the exp2 unit.
 //
-// Design (bf16). No atomics, so the result is the same every run, as the TPU's
-// sequential grid axes gave. K6a: a block owns one 64-key tile of one source
-// (the grid runs over the tiles of both sources) and loops over every q tile
-// itself, accumulating dK and dV in registers (4 warps, 16 keys each; the
-// products run on mma.sync m16n8k16 in the transposed form S^T = K Q^T, so
-// that P^T and dS^T stay in registers as the A operand of dV += P^T G and
-// dK += dS^T Q). Q and g_e are staged in shared memory twice, row-major and
-// transposed, so every product reads its B operand with 32-bit loads. A
-// reference tile of a scale-0 row contributes exactly zero: the block writes
-// zeros to its dK_ref/dV_ref rows and returns (the outputs are allocated
-// uninitialised). K6b: a block owns one 64-row q tile and loops over the key
-// tiles of both sources, accumulating dQ in registers; the reference source is
-// skipped for a scale-0 row. D is padded to the 16-deep MMA step in shared
-// memory only (40 -> 48); ragged sequence edges are masked (p = 0). At D > 80
-// K6a takes 32 q rows per step to keep its two D-wide accumulators and the
-// score tiles in registers.
+// Design (bf16, sm_90a). K6b runs first and K6a second, on one stream.
+//  * D_i once per row: K6b forms D_i of its rows for every source from g, O
+//    and O2 and writes it to an fp32 (B, H, nsrc, Sq) buffer beside the lse;
+//    K6a reads it as it reads the lse.
+//  * Products on wgmma m64nNk16, one warpgroup per 64 rows, two warpgroups
+//    per block sharing every streamed tile (half the L2 traffic of one).
+//    K6a: a block owns one 128-key tile of one source (the grid runs over
+//    the tiles of both sources) and walks every BQ-row q tile, keeping dK
+//    and dV in registers. S^T = K Q^T and dP^T = V G_e^T read both operands
+//    from shared memory; P^T and dS^T stay in registers as the A operand of
+//    dV += P^T G_e and dK += dS^T Q, whose B operand is the same row-major
+//    Q / G_e tile read MN-major (wgmma's transpose bit): no transposed copy.
+//    K6b: a block owns one 128-row q tile and walks the 64-key tiles of both
+//    sources; S = Q K^T, dP = G_e V^T from shared memory, dQ += dS K with dS
+//    in registers and K read MN-major.
+//  * Tiles live in shared memory in wgmma's no-swizzle layout: 8-row x
+//    16-byte core matrices, column chunk major (a chunk of 8 columns is R
+//    rows of 16 bytes), so one tile serves as a K-major operand (D the
+//    contraction) and as an MN-major one (D the N width) with only the
+//    descriptor's strides changed. D is padded to the 16-deep step in shared
+//    memory only (40 -> 48); N = D for the D-wide products.
+//  * Tensor-memory-accelerator loads into a ring of four stages (three at
+//    D > 128), each with an mbarrier, requested two steps ahead: one thread
+//    asks for a whole tile with one instruction, through a 5-D tensor map
+//    over the (B, S, H, D) strides whose box is the tile in its shared
+//    layout (8 columns, R rows, every chunk); the unit zero-fills the rows
+//    past the sequence's end and the padding columns past D. K6a's lse / D_i
+//    rows come by cp.async.
+//  * Software pipeline: the products S, dP of tile t+1 are issued before the
+//    D-wide products of tile t, so the exp2 and dS of tile t+1 run on the
+//    CUDA cores while the tensor cores finish tile t. One exp2 per (q, k)
+//    pair per kernel.
+//  * g_e = coeff * g: the tile arrives as g; where coeff != 1 the block
+//    rounds coeff * g to bf16 in place, so the operand is bit-equal to the
+//    plain version's g_e.
+//  * No atomics: every output element is written once by one block, in a
+//    fixed order, so the result is the same every run, as the TPU's
+//    sequential grid axes gave.
+//  * A reference tile of a scale-0 row contributes exactly zero: K6a writes
+//    zeros to its dK_ref/dV_ref rows and returns (the outputs are allocated
+//    uninitialised); K6b skips the reference source of such a row.
+//  * At D > 80, K6a takes 32 q rows per step to keep its two D-wide
+//    accumulators in registers.
 //
 // The fp32 variants (parity mode) are SIMT kernels: a warp per key row (K6a)
 // or per query row (K6b), D spread over the lanes.
+#include <cuda.h>  // CUtensorMap (the encoder is reached through the runtime)
+
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int NTH = 128;  // 4 warps
-constexpr int BKV = 64;   // keys per K6a block / per K6b step (16 per warp)
-constexpr int BQQ = 64;   // q rows per K6b block (16 per warp)
+constexpr int NTH = 128;  // threads of a warpgroup, and of the fp32 kernels
+constexpr int BKV = 64;   // keys per K6b step
+// Warpgroups per block: K6b loads each key tile once for WGS x 64 q rows,
+// K6a each q tile once for WGS x 64 keys.
+constexpr int WGS = 2;
+// Depth of the tile ring: tiles are requested two steps ahead; three stages
+// at D > 128, where four of K6b's would not fit in shared memory.
+__host__ __device__ constexpr int ring_stages(int dn) { return dn > 128 ? 3 : 4; }
 
 struct BwdArgs {
   const void* q;
@@ -59,6 +94,7 @@ struct BwdArgs {
   const void* o2;  // reference-source output, or null with one source
   const float* lse;        // (B, H, nsrc, Sq) fp32, base 2
   const float* ref_scale;  // (B,) fp32, or null with one source
+  float* delta;            // (B, H, nsrc, Sq) fp32 D_i: K6b writes, K6a reads
   void* dq;
   void* dk;
   void* dv;
@@ -74,6 +110,12 @@ struct BwdArgs {
 
 enum { Q_ = 0, K_, V_, KR_, VR_, G_, O_, O2_, DQ_, DK_, DV_, DKR_, DVR_ };
 
+// Tensor maps of the tiled operands (bf16 path), boxes of 8 columns x the
+// kernel's rows for that operand; kr / vr unset with one source.
+struct Maps {
+  CUtensorMap q, g, k, v, kr, vr;
+};
+
 template <typename T>
 __device__ __forceinline__ const T* row_ptr(const BwdArgs& a, const void* base,
                                             int idx, int b, int s, int h) {
@@ -87,68 +129,400 @@ __device__ __forceinline__ T* row_ptr_w(const BwdArgs& a, void* base, int idx,
          h * a.st[idx][2];
 }
 
+// (B, H, nsrc, Sq) row of the lse / D_i buffers
+__device__ __forceinline__ long long stat_row(const BwdArgs& a, int b, int h, int src) {
+  return ((long long)(b * a.H + h) * a.nsrc + src) * a.Sq;
+}
+
+// ---------------------------------------------------------------------------
+// sm_90 building blocks: TMA, mbarriers, cp.async, fences, wgmma descriptors
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// the one arrival of a stage's phase, announcing the bytes its loads bring
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Wait for the phase of `parity` to complete. A wait that never ends (a
+// load never asked for) traps after ~2^28 polls, so the launch fails with an
+// error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  for (long long spin = 0; !done; ++spin) {
+    if (spin > (1ll << 28)) asm volatile("trap;");
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+// One tile (the map's box: rows s .. s + R - 1 of head h, batch b, every
+// column chunk) into shared memory in the tile layout below; past-the-end
+// rows and columns arrive as zeros.
+__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map, int h, int s, int b,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %2, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(s), "r"(h), "r"(b), "r"(smem_u32(bar))
+      : "memory");
+}
+// 4 bytes global -> shared; an invalid source writes zeros
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// generic-proxy writes to shared memory (st.shared) -> visible to wgmma's
+// async-proxy reads
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pin accumulator registers at this point of the program, so that no read
+// or write of them moves across a wgmma issue or wait.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// A tile of R rows x C columns (bf16, C a multiple of 8) in the no-swizzle
+// core-matrix layout: element (r, c) at ((c / 8) * R + r) * 8 + c % 8.
+template <int R>
+__device__ __forceinline__ int tile_at(int r, int chunk) {
+  return (chunk * R + r) * 8;
+}
+__device__ __forceinline__ uint64_t make_desc(const bf16* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+// The k16 step `kk` of a tile read K-major (the columns are the contraction):
+// 8-row groups 128 bytes apart (SBO), the two column chunks R * 16 apart (LBO).
+template <int R>
+__device__ __forceinline__ uint64_t desc_kmajor(const bf16* tile, int kk) {
+  return make_desc(tile + tile_at<R>(0, 2 * kk), R * 16, 128);
+}
+// The k16 step `kk` of a tile read MN-major (the rows are the contraction,
+// the columns the N width): column chunks R * 16 bytes apart (SBO), the two
+// 8-row groups of the step 128 apart (LBO).
+template <int R>
+__device__ __forceinline__ uint64_t desc_mnmajor(const bf16* tile, int kk) {
+  return make_desc(tile + tile_at<R>(16 * kk, 0), 128, R * 16);
+}
+
+// g_e = coeff * g rounded to bf16, in place over the first D columns
+template <int R, int NT>
+__device__ __forceinline__ void scale_tile(bf16* tile, int D, float coeff, int tid) {
+  for (int i = tid; i < R * (D / 8); i += NT) {
+    bf16* p = tile + tile_at<R>(i % R, i / R);
+    float f[8];
+    load8(p, f);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) f[j] *= coeff;
+    store8(p, f);
+  }
+}
+
+// 2^x on the special-function unit (one MUFU.EX2; denormal results flush
+// to zero, far below a bf16 probability's resolution)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Accumulator element j of m64nN: (row within the warp's 16, column)
+__device__ __forceinline__ int acc_col(int j, int lane) {
+  return 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+}
+// The k16 step kk of a 64 x N accumulator as a wgmma A fragment, in bf16
+__device__ __forceinline__ void a_frag(uint32_t f[4], const float* s, int kk) {
+  f[0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+  f[1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+  f[2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+  f[3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+}
+
+// Store a warpgroup's 64 x DN accumulator (rows row0 + 16 * warp .., warp
+// within the warpgroup) to a (B, S, H, D) bf16 tensor, columns < D and
+// rows < S, times `mul`.
+template <int DN>
+__device__ __forceinline__ void store_rows(const float (&acc)[DN / 2], const BwdArgs& a,
+                                           void* base, int idx, int b, int h, int row0,
+                                           int S, float mul, int warp, int lane) {
+#pragma unroll
+  for (int j = 0; j < DN / 2; j += 2) {
+    const int row = row0 + 16 * warp + (lane >> 2) + 4 * (j & 2), col = acc_col(j, lane);
+    if (row < S && col < a.D)
+      *reinterpret_cast<__nv_bfloat162*>(row_ptr_w<bf16>(a, base, idx, b, row, h) + col) =
+          __floats2bfloat162_rn(mul * acc[j], mul * acc[j + 1]);
+  }
+}
+
 // Partial D_i of one query row over columns [c, c + 8): the _bwd_di terms.
-template <typename T>
-__device__ __forceinline__ float di_part(const BwdArgs& a, int b, int row, int h,
-                                         int c, int src, float s_b) {
+__device__ __forceinline__ float di_part(const BwdArgs& a, int b, int row, int h, int c,
+                                         int src, float s_b) {
   float gv[8], ov[8];
-  load8(row_ptr<T>(a, a.g, G_, b, row, h) + c, gv);
+  load8(row_ptr<bf16>(a, a.g, G_, b, row, h) + c, gv);
   float acc = 0.f;
   if (a.nsrc == 1) {
-    load8(row_ptr<T>(a, a.o, O_, b, row, h) + c, ov);
+    load8(row_ptr<bf16>(a, a.o, O_, b, row, h) + c, ov);
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc += gv[i] * ov[i];
     return acc;
   }
   float o2v[8];
-  load8(row_ptr<T>(a, a.o2, O2_, b, row, h) + c, o2v);
+  load8(row_ptr<bf16>(a, a.o2, O2_, b, row, h) + c, o2v);
   if (src == 1) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc += gv[i] * o2v[i];
     return s_b * acc;
   }
-  load8(row_ptr<T>(a, a.o, O_, b, row, h) + c, ov);
+  load8(row_ptr<bf16>(a, a.o, O_, b, row, h) + c, ov);
 #pragma unroll
   for (int i = 0; i < 8; ++i) acc += gv[i] * (ov[i] - s_b * o2v[i]);
   return acc;
 }
 
 // ---------------------------------------------------------------------------
-// K6a, bf16: dK, dV of one 64-key tile
+// K6b, bf16: D_i and dQ of one q tile of 64 * WGS rows over both sources
 // ---------------------------------------------------------------------------
+//
+// Warpgroup w owns rows 64 w .. 64 w + 63 of the tile; each key tile is
+// loaded once for all of them. Key tile t (the source-1 tiles, then the
+// reference ones) lands in stage t % STAGES. Groups of products in flight at
+// the top of step t: S(t), dP(t), dQ(t-1).
 
-template <int DP, int BQ>
-__global__ void __launch_bounds__(NTH) flash_bwd_dkv_bf16(const BwdArgs a) {
-  constexpr int RS = DP + 8;  // padded row of [row][d] tiles (elements)
-  constexpr int TS = BQ + 8;  // padded row of [d][q] tiles
-  constexpr int ND = DP / 8;  // n8 tiles over D
-  constexpr int NQ = BQ / 8;  // n8 tiles over the q step
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [BKV][RS]
-  bf16* Vs = Ks + BKV * RS;                      // [BKV][RS]
-  bf16* Qs = Vs + BKV * RS;                      // [BQ][RS]
-  bf16* Gs = Qs + BQ * RS;                       // [BQ][RS]  g_e
-  bf16* Qt = Gs + BQ * RS;                       // [DP][TS]
-  bf16* Gt = Qt + DP * TS;                       // [DP][TS]
-  float* Ls = reinterpret_cast<float*>(Gt + DP * TS);  // [BQ] lse
-  float* Ds = Ls + BQ;                                 // [BQ] D_i
+template <int DN>
+__global__ void __launch_bounds__(NTH * WGS, 1)
+    flash_bwd_dq_wgmma(const BwdArgs a, const __grid_constant__ Maps m) {
+  constexpr int NT = NTH * WGS;            // threads
+  constexpr int BQ = 64 * WGS;             // q rows of the block
+  constexpr int STAGES = ring_stages(DN);
+  constexpr int DK = (DN + 15) / 16 * 16;  // contraction width (16-deep steps)
+  constexpr int QT = BQ * DK;              // elements of the q tile
+  constexpr int TILE = BKV * DK;           // elements of a key tile
+  constexpr uint32_t TILE_BYTES = TILE * 2;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Gs = Qs + QT;             // g_e of the current source
+  bf16* Ks = Gs + QT;             // [STAGES] key tiles
+  bf16* Vs = Ks + STAGES * TILE;  // [STAGES]
+  uint64_t* full = reinterpret_cast<uint64_t*>(Vs + STAGES * TILE);  // [STAGES]
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int fr = lane >> 2, fc = lane & 3;
+  const int tid = threadIdx.x, lane = tid & 31, warp = (tid >> 5) & 3, wg = tid >> 7;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const float s_b = a.nsrc == 2 ? a.ref_scale[b] : 0.f;
+  const int n0 = (a.Skv + BKV - 1) / BKV;
+  const int nt = n0 + (a.nsrc == 2 && s_b != 0.f ? (a.Skv_ref + BKV - 1) / BKV : 0);
+  // key tile t: its source and first key; one thread loads it
+  auto tile_src = [&](int t) { return t < n0 ? 0 : 1; };
+  auto load_kv = [&](int t) {
+    const int src = tile_src(t), st = t % STAGES;
+    const int kv0 = (t - src * n0) * BKV;
+    mbar_expect(&full[st], 2 * TILE_BYTES + (t == 0 ? 4 * QT : 0));
+    tma_tile(Ks + st * TILE, src ? &m.kr : &m.k, h, kv0, b, &full[st]);
+    tma_tile(Vs + st * TILE, src ? &m.vr : &m.v, h, kv0, b, &full[st]);
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < STAGES; ++i) mbar_init(&full[i]);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {  // Q and g with the first key tile, then the second
+    load_kv(0);
+    tma_tile(Qs, &m.q, h, q0, b, &full[0]);
+    tma_tile(Gs, &m.g, h, q0, b, &full[0]);
+    for (int i = 1; i < STAGES - 1 && i < nt; ++i) load_kv(i);
+  }
+
+  // lse and D_i of this thread's rows r0, r1 for both sources (the 4
+  // threads of a row split D); D_i goes to the buffer for K6a
+  const int r0 = q0 + 64 * wg + 16 * warp + (lane >> 2), r1 = r0 + 8;
+  float lse[2][2], di[2][2];
+#pragma unroll
+  for (int src = 0; src < 2; ++src) {
+    float d0 = 0.f, d1 = 0.f;
+    if (src < a.nsrc) {
+      for (int c = (lane & 3) * 8; c < a.D; c += 32) {
+        if (r0 < a.Sq) d0 += di_part(a, b, r0, h, c, src, s_b);
+        if (r1 < a.Sq) d1 += di_part(a, b, r1, h, c, src, s_b);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      d0 += __shfl_xor_sync(0xffffffffu, d0, off);
+      d1 += __shfl_xor_sync(0xffffffffu, d1, off);
+    }
+    di[src][0] = d0;
+    di[src][1] = d1;
+    lse[src][0] = lse[src][1] = 0.f;
+    if (src < a.nsrc) {
+      const long long row = stat_row(a, b, h, src);
+      if (r0 < a.Sq) lse[src][0] = a.lse[row + r0];
+      if (r1 < a.Sq) lse[src][1] = a.lse[row + r1];
+      if ((lane & 3) == 0) {
+        if (r0 < a.Sq) a.delta[row + r0] = d0;
+        if (r1 < a.Sq) a.delta[row + r1] = d1;
+      }
+    }
+  }
+
+  float dq[DN / 2], s[32], dp[32];
+  uint32_t ds[4][4];
+#pragma unroll
+  for (int j = 0; j < DN / 2; ++j) dq[j] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) s[j] = dp[j] = 0.f;
+
+  // S = Q K^T and dP = G_e V^T of key tile t (this warpgroup's 64 rows),
+  // one group each
+  const bf16* Qw = Qs + tile_at<BQ>(64 * wg, 0);
+  const bf16* Gw = Gs + tile_at<BQ>(64 * wg, 0);
+  auto issue_s_dp = [&](int t) {
+    const bf16* Kt = Ks + (t % STAGES) * TILE;
+    const bf16* Vt = Vs + (t % STAGES) * TILE;
+    wgmma_fence();
+    fence_regs(s);
+    fence_regs(dp);
+#pragma unroll
+    for (int kk = 0; kk < DK / 16; ++kk)
+      Wgmma<64>::ss<0, 0>(s, desc_kmajor<BQ>(Qw, kk), desc_kmajor<BKV>(Kt, kk), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < DK / 16; ++kk)
+      Wgmma<64>::ss<0, 0>(dp, desc_kmajor<BQ>(Gw, kk), desc_kmajor<BKV>(Vt, kk), kk);
+    wgmma_commit();
+  };
+
+  mbar_wait(&full[0], 0);  // Q, g and key tile 0 have landed
+  issue_s_dp(0);
+  wgmma_commit();  // an empty group in the place of dQ(-1)
+
+  for (int t = 0; t < nt; ++t) {
+    const int src = tile_src(t);
+    const int kv0 = (t - src * n0) * BKV;
+    const int Skv = src ? a.Skv_ref : a.Skv;
+    // P = exp2(S * scale - lse), keys past Skv masked
+    wgmma_wait<2>();
+    fence_regs(s);
+    const float l0 = src ? lse[1][0] : lse[0][0], l1 = src ? lse[1][1] : lse[0][1];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) s[j] = fast_exp2(s[j] * a.scale_log2 - ((j & 2) ? l1 : l0));
+    if (kv0 + BKV > Skv) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        if (kv0 + acc_col(j, lane) >= Skv) s[j] = 0.f;
+    }
+    // dS = P * (dP - D_i)
+    wgmma_wait<1>();
+    fence_regs(dp);
+    const float d0 = src ? di[1][0] : di[0][0], d1 = src ? di[1][1] : di[0][1];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) dp[j] = s[j] * (dp[j] - ((j & 2) ? d1 : d0));
+    wgmma_wait<0>();  // dQ(t-1) done: ds and its key stage are free
+    fence_regs(dq);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) a_frag(ds[kk], dp, kk);
+
+    if (t + 1 < nt) {
+      mbar_wait(&full[(t + 1) % STAGES], (t + 1) / STAGES & 1);  // key tile t+1
+      if (t + 1 == n0 && s_b != 1.f) {  // the reference source: g -> s_b g
+        __syncthreads();
+        scale_tile<BQ, NT>(Gs, a.D, s_b, tid);
+        fence_async_shared();
+      }
+      __syncthreads();  // every warp is past dQ(t-1): its stage is free
+      if (tid == 0 && t + STAGES - 1 < nt) load_kv(t + STAGES - 1);
+      issue_s_dp(t + 1);
+    }
+    // dQ += dS K, K read MN-major
+    const bf16* Kt = Ks + (t % STAGES) * TILE;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      Wgmma<DN>::template rs<1>(dq, ds[kk], desc_mnmajor<BKV>(Kt, kk), 1);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs(dq);
+
+  store_rows<DN>(dq, a, a.dq, DQ_, b, h, q0 + 64 * wg, a.Sq, a.sm_scale, warp, lane);
+}
+
+// ---------------------------------------------------------------------------
+// K6a, bf16: dK, dV of one key tile of 64 * WGS keys
+// ---------------------------------------------------------------------------
+//
+// Warpgroup w owns keys 64 w .. 64 w + 63 of the tile; each q tile is loaded
+// once for all of them. Q tile i (q, g_e, and its lse / D_i rows) lands in
+// stage i % STAGES. Groups of products in flight at the top of step i:
+// S^T(i), dP^T(i), dV/dK(i-1).
+
+template <int DN, int BQ>
+__global__ void __launch_bounds__(NTH * WGS, 1)
+    flash_bwd_dkv_wgmma(const BwdArgs a, const __grid_constant__ Maps m) {
+  constexpr int NT = NTH * WGS;  // threads
+  constexpr int BK = 64 * WGS;   // keys of the block
+  constexpr int STAGES = ring_stages(DN);
+  constexpr int DK = (DN + 15) / 16 * 16;
+  constexpr int KT = BK * DK;   // elements of the key tile
+  constexpr int QT = BQ * DK;   // elements of a q tile
+  constexpr int NS = BQ / 2;    // accumulator floats of m64nBQ
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + KT;
+  bf16* Qs = Vs + KT;           // [STAGES]
+  bf16* Gs = Qs + STAGES * QT;  // [STAGES] g_e
+  float* Ls = reinterpret_cast<float*>(Gs + STAGES * QT);  // [STAGES][BQ] lse
+  float* Ds = Ls + STAGES * BQ;                             // [STAGES][BQ] D_i
+  uint64_t* full = reinterpret_cast<uint64_t*>(Ds + STAGES * BQ);  // [STAGES]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = (tid >> 5) & 3, wg = tid >> 7;
   const int h = blockIdx.y, b = blockIdx.z, D = a.D;
-  const int nkt0 = (a.Skv + BKV - 1) / BKV;
+  const int nkt0 = (a.Skv + BK - 1) / BK;
   const int src = (int)blockIdx.x >= nkt0 ? 1 : 0;
-  const int kv0 = ((int)blockIdx.x - src * nkt0) * BKV;
+  const int kv0 = ((int)blockIdx.x - src * nkt0) * BK;
   const int Skv = src ? a.Skv_ref : a.Skv;
   const float s_b = a.nsrc == 2 ? a.ref_scale[b] : 0.f;
   const float coeff = src ? s_b : 1.f;
   void* dkp = src ? a.dkr : a.dk;
   void* dvp = src ? a.dvr : a.dv;
-  const int ik = src ? KR_ : K_, iv = src ? VR_ : V_;
   const int idk = src ? DKR_ : DK_, idv = src ? DVR_ : DV_;
 
   if (src == 1 && s_b == 0.f) {  // zero contribution: write zeros
-    for (int idx = tid; idx < BKV * (D / 8); idx += NTH) {
+    for (int idx = tid; idx < BK * (D / 8); idx += NT) {
       const int r = idx / (D / 8), cv = (idx % (D / 8)) * 8;
       if (kv0 + r < Skv) {
         *reinterpret_cast<uint4*>(row_ptr_w<bf16>(a, dkp, idk, b, kv0 + r, h) + cv) =
@@ -160,343 +534,139 @@ __global__ void __launch_bounds__(NTH) flash_bwd_dkv_bf16(const BwdArgs a) {
     return;
   }
 
-  for (int idx = tid; idx < BKV * (DP / 8); idx += NTH) {
-    const int r = idx / (DP / 8), cv = (idx % (DP / 8)) * 8;
-    uint4 kval = make_uint4(0, 0, 0, 0), vval = kval;
-    if (kv0 + r < Skv && cv < D) {
-      kval = *reinterpret_cast<const uint4*>(
-          row_ptr<bf16>(a, src ? a.kr : a.k, ik, b, kv0 + r, h) + cv);
-      vval = *reinterpret_cast<const uint4*>(
-          row_ptr<bf16>(a, src ? a.vr : a.v, iv, b, kv0 + r, h) + cv);
+  const long long srow = stat_row(a, b, h, src);
+  const int nq = (a.Sq + BQ - 1) / BQ;
+  // the q side of tile i: q and g by one thread, the lse / D_i rows by
+  // cp.async (one group per tile, committed by every thread)
+  auto load_q_side = [&](int i) {
+    const int q0 = i * BQ, st = i % STAGES;
+    if (tid == 0) {
+      mbar_expect(&full[st], 2 * QT * 2 + (i == 0 ? 2 * KT * 2 : 0));
+      tma_tile(Qs + st * QT, &m.q, h, q0, b, &full[st]);
+      tma_tile(Gs + st * QT, &m.g, h, q0, b, &full[st]);
     }
-    *reinterpret_cast<uint4*>(&Ks[r * RS + cv]) = kval;
-    *reinterpret_cast<uint4*>(&Vs[r * RS + cv]) = vval;
+    if (tid < 2 * BQ) {
+      const int r = tid % BQ;
+      const bool ok = q0 + r < a.Sq;
+      const float* from = tid < BQ ? a.lse : a.delta;
+      float* to = tid < BQ ? Ls : Ds;
+      cp_async4(to + st * BQ + r, from + srow + (ok ? q0 + r : 0), ok);
+    }
+    cp_async_commit();
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < STAGES; ++i) mbar_init(&full[i]);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  load_q_side(0);
+  if (tid == 0) {  // the key tile with q tile 0
+    tma_tile(Ks, src ? &m.kr : &m.k, h, kv0, b, &full[0]);
+    tma_tile(Vs, src ? &m.vr : &m.v, h, kv0, b, &full[0]);
+  }
+  for (int i = 1; i < STAGES - 1; ++i) {
+    if (i < nq) load_q_side(i);
+    else cp_async_commit();  // one cp.async group per tile index
   }
 
-  float dk[ND][4], dv[ND][4];
+  float dk[DN / 2], dv[DN / 2], s[NS], dp[NS];
+  uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
+  for (int j = 0; j < DN / 2; ++j) dk[j] = dv[j] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  for (int j = 0; j < NS; ++j) s[j] = dp[j] = 0.f;
 
-  const float* lse_b = a.lse + ((long long)(b * a.H + h) * a.nsrc + src) * a.Sq;
-
-  for (int q0 = 0; q0 < a.Sq; q0 += BQ) {
-    __syncthreads();  // K/V staged; the previous q step consumed
-    for (int idx = tid; idx < BQ * (DP / 8); idx += NTH) {
-      const int r = idx / (DP / 8), cv = (idx % (DP / 8)) * 8;
-      uint4 qval = make_uint4(0, 0, 0, 0), gval = qval;
-      if (q0 + r < a.Sq && cv < D) {
-        qval = *reinterpret_cast<const uint4*>(row_ptr<bf16>(a, a.q, Q_, b, q0 + r, h) + cv);
-        float gf[8];
-        load8(row_ptr<bf16>(a, a.g, G_, b, q0 + r, h) + cv, gf);
+  // S^T = K Q^T and dP^T = V G_e^T of q tile i: this warpgroup's 64 keys x
+  // BQ rows
+  const bf16* Kw = Ks + tile_at<BK>(64 * wg, 0);
+  const bf16* Vw = Vs + tile_at<BK>(64 * wg, 0);
+  auto issue_s_dp = [&](int i) {
+    const bf16* Qt = Qs + (i % STAGES) * QT;
+    const bf16* Gt = Gs + (i % STAGES) * QT;
+    wgmma_fence();
+    fence_regs(s);
+    fence_regs(dp);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) gf[i] *= coeff;
-        store8(reinterpret_cast<bf16*>(&gval), gf);
-      }
-      *reinterpret_cast<uint4*>(&Qs[r * RS + cv]) = qval;
-      *reinterpret_cast<uint4*>(&Gs[r * RS + cv]) = gval;
-      const bf16* qe = reinterpret_cast<const bf16*>(&qval);
-      const bf16* ge = reinterpret_cast<const bf16*>(&gval);
+    for (int kk = 0; kk < DK / 16; ++kk)
+      Wgmma<BQ>::template ss<0, 0>(s, desc_kmajor<BK>(Kw, kk), desc_kmajor<BQ>(Qt, kk), kk);
+    wgmma_commit();
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        Qt[(cv + i) * TS + r] = qe[i];
-        Gt[(cv + i) * TS + r] = ge[i];
-      }
+    for (int kk = 0; kk < DK / 16; ++kk)
+      Wgmma<BQ>::template ss<0, 0>(dp, desc_kmajor<BK>(Vw, kk), desc_kmajor<BQ>(Gt, kk), kk);
+    wgmma_commit();
+  };
+  // q tile i in its stage: the lse / D_i rows of every thread, and g_e
+  auto ready = [&](int i) {
+    mbar_wait(&full[i % STAGES], i / STAGES & 1);
+    if (coeff != 1.f) {
+      scale_tile<BQ, NT>(Gs + (i % STAGES) * QT, D, coeff, tid);
+      fence_async_shared();
     }
-    // lse and D_i of the BQ rows: NTH / BQ threads per row, D in 8-wide chunks
-    {
-      constexpr int TPR = NTH / BQ;  // 2 or 4
-      const int r = tid / TPR, part = tid % TPR;
-      float di = 0.f;
-      if (q0 + r < a.Sq)
-        for (int c = part * 8; c < D; c += 8 * TPR)
-          di += di_part<bf16>(a, b, q0 + r, h, c, src, s_b);
-#pragma unroll
-      for (int off = 1; off < TPR; off <<= 1)
-        di += __shfl_xor_sync(0xffffffffu, di, off);
-      if (part == 0) {
-        Ds[r] = q0 + r < a.Sq ? di : 0.f;
-        Ls[r] = q0 + r < a.Sq ? lse_b[q0 + r] : 0.f;
-      }
-    }
-    __syncthreads();
+  };
 
-    // S^T = K Q^T: this warp's 16 keys x BQ queries
-    float s[NQ][4];
-#pragma unroll
-    for (int j = 0; j < NQ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll 2
-    for (int kk = 0; kk < DP; kk += 16) {
-      uint32_t af[4];
-      const bf16* a0 = Ks + (warp * 16 + fr) * RS + kk + fc * 2;
-      af[0] = lds32(a0);
-      af[1] = lds32(a0 + 8 * RS);
-      af[2] = lds32(a0 + 8);
-      af[3] = lds32(a0 + 8 * RS + 8);
-#pragma unroll
-      for (int j = 0; j < NQ; ++j) {
-        uint32_t bfr[2];
-        const bf16* b0 = Qs + (j * 8 + fr) * RS + kk + fc * 2;
-        bfr[0] = lds32(b0);
-        bfr[1] = lds32(b0 + 8);
-        mma_bf16_16816(s[j], af, bfr);
-      }
-    }
-    // P^T = exp2(S^T * scale - lse[q]); padded queries get p = 0
-#pragma unroll
-    for (int j = 0; j < NQ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = j * 8 + fc * 2 + (e & 1);
-        const float p = exp2f(s[j][e] * a.scale_log2 - Ls[qc]);
-        s[j][e] = q0 + qc < a.Sq ? p : 0.f;
-      }
+  ready(0);
+  cp_async_wait<STAGES - 2>();
+  __syncthreads();
+  issue_s_dp(0);
+  wgmma_commit();  // an empty group in the place of dV/dK(-1)
 
-    // dV += P^T G_e
+  for (int i = 0; i < nq; ++i) {
+    const int q0 = i * BQ;
+    const float* Lt = Ls + (i % STAGES) * BQ;
+    const float* Dt = Ds + (i % STAGES) * BQ;
+    // P^T = exp2(S^T * scale - lse[q]); queries past Sq masked
+    wgmma_wait<2>();
+    fence_regs(s);
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[j] = fast_exp2(s[j] * a.scale_log2 - Lt[acc_col(j, lane)]);
+    if (q0 + BQ > a.Sq) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+        if (q0 + acc_col(j, lane) >= a.Sq) s[j] = 0.f;
+    }
+    // dS^T = P^T * (dP^T - D_i[q])
+    wgmma_wait<1>();
+    fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < NS; ++j) dp[j] = s[j] * (dp[j] - Dt[acc_col(j, lane)]);
+    wgmma_wait<0>();  // dV/dK(i-1) done: pa, dsa and its q stage are free
+    fence_regs(dv);
+    fence_regs(dk);
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        uint32_t bfr[2];
-        const bf16* b0 = Gt + (n * 8 + fr) * TS + kk * 16 + fc * 2;
-        bfr[0] = lds32(b0);
-        bfr[1] = lds32(b0 + 8);
-        mma_bf16_16816(dv[n], pa, bfr);
-      }
+      a_frag(pa[kk], s, kk);
+      a_frag(dsa[kk], dp, kk);
     }
 
-    // dP^T = V G_e^T, then dS^T = P^T * (dP^T - D_i) in place
-    float dp[NQ][4];
-#pragma unroll
-    for (int j = 0; j < NQ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
-#pragma unroll 2
-    for (int kk = 0; kk < DP; kk += 16) {
-      uint32_t af[4];
-      const bf16* a0 = Vs + (warp * 16 + fr) * RS + kk + fc * 2;
-      af[0] = lds32(a0);
-      af[1] = lds32(a0 + 8 * RS);
-      af[2] = lds32(a0 + 8);
-      af[3] = lds32(a0 + 8 * RS + 8);
-#pragma unroll
-      for (int j = 0; j < NQ; ++j) {
-        uint32_t bfr[2];
-        const bf16* b0 = Gs + (j * 8 + fr) * RS + kk + fc * 2;
-        bfr[0] = lds32(b0);
-        bfr[1] = lds32(b0 + 8);
-        mma_bf16_16816(dp[j], af, bfr);
-      }
+    if (i + 1 < nq) {
+      ready(i + 1);
+      cp_async_wait<STAGES - 3>();
+      __syncthreads();  // every warp is past dV/dK(i-1): its stage is free
+      if (i + STAGES - 1 < nq) load_q_side(i + STAGES - 1);
+      else cp_async_commit();
+      issue_s_dp(i + 1);
     }
+    // dV += P^T G_e and dK += dS^T Q, G_e and Q read MN-major
+    const bf16* Qt = Qs + (i % STAGES) * QT;
+    const bf16* Gt = Gs + (i % STAGES) * QT;
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < NQ; ++j)
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      Wgmma<DN>::template rs<1>(dv, pa[kk], desc_mnmajor<BQ>(Gt, kk), 1);
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        dp[j][e] = s[j][e] * (dp[j][e] - Ds[j * 8 + fc * 2 + (e & 1)]);
-
-    // dK += dS^T Q (the 1/sqrt(D) is applied once, at the store)
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
-      pa[1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
-      pa[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-      pa[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        uint32_t bfr[2];
-        const bf16* b0 = Qt + (n * 8 + fr) * TS + kk * 16 + fc * 2;
-        bfr[0] = lds32(b0);
-        bfr[1] = lds32(b0 + 8);
-        mma_bf16_16816(dk[n], pa, bfr);
-      }
-    }
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      Wgmma<DN>::template rs<1>(dk, dsa[kk], desc_mnmajor<BQ>(Qt, kk), 1);
+    wgmma_commit();
   }
+  wgmma_wait<0>();
+  fence_regs(dv);
+  fence_regs(dk);
 
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = kv0 + warp * 16 + fr + (e >= 2 ? 8 : 0);
-      const int col = n * 8 + fc * 2 + (e & 1);
-      if (row < Skv && col < D) {
-        row_ptr_w<bf16>(a, dkp, idk, b, row, h)[col] =
-            __float2bfloat16_rn(a.sm_scale * dk[n][e]);
-        row_ptr_w<bf16>(a, dvp, idv, b, row, h)[col] = __float2bfloat16_rn(dv[n][e]);
-      }
-    }
-}
-
-// ---------------------------------------------------------------------------
-// K6b, bf16: dQ of one 64-row q tile over both sources
-// ---------------------------------------------------------------------------
-
-template <int DP>
-__global__ void __launch_bounds__(NTH) flash_bwd_dq_bf16(const BwdArgs a) {
-  constexpr int RS = DP + 8;
-  constexpr int TS = BKV + 8;
-  constexpr int ND = DP / 8;
-  constexpr int NK = BKV / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BQQ][RS]
-  bf16* Gs = Qs + BQQ * RS;                      // [BQQ][RS]  g_e
-  bf16* Ks = Gs + BQQ * RS;                      // [BKV][RS]
-  bf16* Vs = Ks + BKV * RS;                      // [BKV][RS]
-  bf16* Kt = Vs + BKV * RS;                      // [DP][TS]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int fr = lane >> 2, fc = lane & 3;
-  const int q0 = blockIdx.x * BQQ, h = blockIdx.y, b = blockIdx.z, D = a.D;
-  const float s_b = a.nsrc == 2 ? a.ref_scale[b] : 0.f;
-  const int r0 = q0 + warp * 16 + fr, r1 = r0 + 8;  // this thread's rows
-
-  for (int idx = tid; idx < BQQ * (DP / 8); idx += NTH) {
-    const int r = idx / (DP / 8), cv = (idx % (DP / 8)) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (q0 + r < a.Sq && cv < D)
-      val = *reinterpret_cast<const uint4*>(row_ptr<bf16>(a, a.q, Q_, b, q0 + r, h) + cv);
-    *reinterpret_cast<uint4*>(&Qs[r * RS + cv]) = val;
-  }
-
-  float dq[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
-
-  for (int src = 0; src < a.nsrc; ++src) {
-    if (src == 1 && s_b == 0.f) break;  // zero contribution
-    const float coeff = src ? s_b : 1.f;
-    const int Skv = src ? a.Skv_ref : a.Skv;
-    const int ik = src ? KR_ : K_, iv = src ? VR_ : V_;
-    const void* kb = src ? a.kr : a.k;
-    const void* vb = src ? a.vr : a.v;
-
-    __syncthreads();  // the previous source's last tile consumed
-    for (int idx = tid; idx < BQQ * (DP / 8); idx += NTH) {
-      const int r = idx / (DP / 8), cv = (idx % (DP / 8)) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (q0 + r < a.Sq && cv < D) {
-        float gf[8];
-        load8(row_ptr<bf16>(a, a.g, G_, b, q0 + r, h) + cv, gf);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) gf[i] *= coeff;
-        store8(reinterpret_cast<bf16*>(&val), gf);
-      }
-      *reinterpret_cast<uint4*>(&Gs[r * RS + cv]) = val;
-    }
-    // lse and D_i of rows r0, r1: the 4 threads of a row pair split D
-    float di0 = 0.f, di1 = 0.f;
-    for (int c = fc * 8; c < D; c += 32) {
-      if (r0 < a.Sq) di0 += di_part<bf16>(a, b, r0, h, c, src, s_b);
-      if (r1 < a.Sq) di1 += di_part<bf16>(a, b, r1, h, c, src, s_b);
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      di0 += __shfl_xor_sync(0xffffffffu, di0, off);
-      di1 += __shfl_xor_sync(0xffffffffu, di1, off);
-    }
-    const float* lse_b = a.lse + ((long long)(b * a.H + h) * a.nsrc + src) * a.Sq;
-    const float lse0 = r0 < a.Sq ? lse_b[r0] : 0.f;
-    const float lse1 = r1 < a.Sq ? lse_b[r1] : 0.f;
-
-    for (int kv0 = 0; kv0 < Skv; kv0 += BKV) {
-      __syncthreads();  // G staged / the previous tile consumed
-      for (int idx = tid; idx < BKV * (DP / 8); idx += NTH) {
-        const int r = idx / (DP / 8), cv = (idx % (DP / 8)) * 8;
-        uint4 kval = make_uint4(0, 0, 0, 0), vval = kval;
-        if (kv0 + r < Skv && cv < D) {
-          kval = *reinterpret_cast<const uint4*>(row_ptr<bf16>(a, kb, ik, b, kv0 + r, h) + cv);
-          vval = *reinterpret_cast<const uint4*>(row_ptr<bf16>(a, vb, iv, b, kv0 + r, h) + cv);
-        }
-        *reinterpret_cast<uint4*>(&Ks[r * RS + cv]) = kval;
-        *reinterpret_cast<uint4*>(&Vs[r * RS + cv]) = vval;
-        const bf16* ke = reinterpret_cast<const bf16*>(&kval);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) Kt[(cv + i) * TS + r] = ke[i];
-      }
-      __syncthreads();
-
-      // S = Q K^T and dP = G_e V^T, this warp's 16 rows x 64 keys
-      float s[NK][4], dp[NK][4];
-#pragma unroll
-      for (int j = 0; j < NK; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll 2
-      for (int kk = 0; kk < DP; kk += 16) {
-        uint32_t qa[4], ga[4];
-        const bf16* a0 = Qs + (warp * 16 + fr) * RS + kk + fc * 2;
-        qa[0] = lds32(a0);
-        qa[1] = lds32(a0 + 8 * RS);
-        qa[2] = lds32(a0 + 8);
-        qa[3] = lds32(a0 + 8 * RS + 8);
-        const bf16* g0 = Gs + (warp * 16 + fr) * RS + kk + fc * 2;
-        ga[0] = lds32(g0);
-        ga[1] = lds32(g0 + 8 * RS);
-        ga[2] = lds32(g0 + 8);
-        ga[3] = lds32(g0 + 8 * RS + 8);
-#pragma unroll
-        for (int j = 0; j < NK; ++j) {
-          uint32_t bk[2], bv[2];
-          const bf16* k0 = Ks + (j * 8 + fr) * RS + kk + fc * 2;
-          bk[0] = lds32(k0);
-          bk[1] = lds32(k0 + 8);
-          mma_bf16_16816(s[j], qa, bk);
-          const bf16* v0 = Vs + (j * 8 + fr) * RS + kk + fc * 2;
-          bv[0] = lds32(v0);
-          bv[1] = lds32(v0 + 8);
-          mma_bf16_16816(dp[j], ga, bv);
-        }
-      }
-      // dS = P * (dP - D_i), padded keys masked
-#pragma unroll
-      for (int j = 0; j < NK; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = kv0 + j * 8 + fc * 2 + (e & 1);
-          const float p = exp2f(s[j][e] * a.scale_log2 - (e < 2 ? lse0 : lse1));
-          const float ds = p * (dp[j][e] - (e < 2 ? di0 : di1));
-          s[j][e] = col < Skv ? ds : 0.f;
-        }
-      // dQ += dS K
-#pragma unroll
-      for (int kk = 0; kk < BKV / 16; ++kk) {
-        uint32_t pa[4];
-        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-        for (int n = 0; n < ND; ++n) {
-          uint32_t bfr[2];
-          const bf16* b0 = Kt + (n * 8 + fr) * TS + kk * 16 + fc * 2;
-          bfr[0] = lds32(b0);
-          bfr[1] = lds32(b0 + 8);
-          mma_bf16_16816(dq[n], pa, bfr);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = e >= 2 ? r1 : r0;
-      const int col = n * 8 + fc * 2 + (e & 1);
-      if (row < a.Sq && col < D)
-        row_ptr_w<bf16>(a, a.dq, DQ_, b, row, h)[col] =
-            __float2bfloat16_rn(a.sm_scale * dq[n][e]);
-    }
+  // the 1/sqrt(D) of dK is applied once, here
+  store_rows<DN>(dk, a, dkp, idk, b, h, kv0 + 64 * wg, Skv, a.sm_scale, warp, lane);
+  store_rows<DN>(dv, a, dvp, idv, b, h, kv0 + 64 * wg, Skv, 1.f, warp, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -605,11 +775,12 @@ __global__ void __launch_bounds__(NTH) flash_bwd_dq_f32(const BwdArgs a) {
     dq[i] = 0.f;
   }
   for (int src = 0; src < a.nsrc; ++src) {
+    const float di = di_row_f32<DPL>(a, b, qi, h, src, s_b, lane);
+    if (lane == 0) a.delta[stat_row(a, b, h, src) + qi] = di;
     if (src == 1 && s_b == 0.f) break;
     const float coeff = src ? s_b : 1.f;
     const int Skv = src ? a.Skv_ref : a.Skv;
-    const float di = di_row_f32<DPL>(a, b, qi, h, src, s_b, lane);
-    const float lse = a.lse[((long long)(b * a.H + h) * a.nsrc + src) * a.Sq + qi];
+    const float lse = a.lse[stat_row(a, b, h, src) + qi];
     for (int kj = 0; kj < Skv; ++kj) {
       const float* kr = row_ptr<float>(a, src ? a.kr : a.k, src ? KR_ : K_, b, kj, h);
       const float* vr = row_ptr<float>(a, src ? a.vr : a.v, src ? VR_ : V_, b, kj, h);
@@ -640,27 +811,118 @@ __global__ void __launch_bounds__(NTH) flash_bwd_dq_f32(const BwdArgs a) {
 // Launchers
 // ---------------------------------------------------------------------------
 
-template <int DP, int BQ>
-int launch_dkv_bf16(const BwdArgs& a, cudaStream_t st) {
-  const size_t smem = (size_t)(2 * BKV * (DP + 8) + 2 * BQ * (DP + 8) +
-                               2 * DP * (BQ + 8)) * 2 + 2 * BQ * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_bf16<DP, BQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query
+// (no -lcuda)
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A map over operand `idx` (a (B, S, H, D) bf16 tensor of length S, by its
+// strides) whose box is one tile: `rows` rows x `chunks` column chunks, laid
+// out chunk by chunk (the map's dimensions, innermost first: 8 columns of a
+// chunk, the row, the head, the chunk, the batch). Built anew for every
+// launch: the caching allocator hands the same address to other tensors.
+bool make_map(CUtensorMap* map, const BwdArgs& a, const void* base, int idx, int S, int rows,
+              int chunks) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[5] = {8, (cuuint64_t)S, (cuuint64_t)a.H, (cuuint64_t)(a.D / 8),
+                              (cuuint64_t)a.B};
+  const cuuint64_t strides[4] = {(cuuint64_t)a.st[idx][1] * 2, (cuuint64_t)a.st[idx][2] * 2,
+                                 16, (cuuint64_t)a.st[idx][0] * 2};
+  const cuuint32_t box[5] = {8, (cuuint32_t)rows, 1, (cuuint32_t)chunks, 1};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims, strides,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// q and g with boxes of q_rows rows, k v (kr vr) of kv_rows rows
+bool make_maps(Maps* m, const BwdArgs& a, int q_rows, int kv_rows, int chunks) {
+  bool ok = make_map(&m->q, a, a.q, Q_, a.Sq, q_rows, chunks) &&
+            make_map(&m->g, a, a.g, G_, a.Sq, q_rows, chunks) &&
+            make_map(&m->k, a, a.k, K_, a.Skv, kv_rows, chunks) &&
+            make_map(&m->v, a, a.v, V_, a.Skv, kv_rows, chunks);
+  if (ok && a.nsrc == 2)
+    ok = make_map(&m->kr, a, a.kr, KR_, a.Skv_ref, kv_rows, chunks) &&
+         make_map(&m->vr, a, a.vr, VR_, a.Skv_ref, kv_rows, chunks);
+  return ok;
+}
+
+template <int DN>
+int launch_dq_bf16(const BwdArgs& a, cudaStream_t st) {
+  constexpr int DK = (DN + 15) / 16 * 16;
+  constexpr int BQ = 64 * WGS;
+  constexpr int STAGES = ring_stages(DN);
+  const size_t smem = (size_t)(2 * BQ + 2 * STAGES * BKV) * DK * sizeof(bf16) +
+                      STAGES * sizeof(uint64_t);
+  Maps m;
+  if (!make_maps(&m, a, BQ, BKV, DK / 8)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_wgmma<DN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = (a.Skv + BKV - 1) / BKV + (a.nsrc == 2 ? (a.Skv_ref + BKV - 1) / BKV : 0);
-  flash_bwd_dkv_bf16<DP, BQ><<<dim3(tiles, a.H, a.B), NTH, smem, st>>>(a);
+  flash_bwd_dq_wgmma<DN>
+      <<<dim3((a.Sq + BQ - 1) / BQ, a.H, a.B), NTH * WGS, smem, st>>>(a, m);
   return (int)cudaGetLastError();
 }
 
-template <int DP>
-int launch_dq_bf16(const BwdArgs& a, cudaStream_t st) {
-  const size_t smem = (size_t)(2 * BQQ * (DP + 8) + 2 * BKV * (DP + 8) + DP * (BKV + 8)) * 2;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_bf16<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int DN>
+int launch_dkv_bf16(const BwdArgs& a, cudaStream_t st) {
+  constexpr int DK = (DN + 15) / 16 * 16;
+  constexpr int BQ = DN <= 80 ? 64 : 32;
+  constexpr int BK = 64 * WGS;
+  constexpr int STAGES = ring_stages(DN);
+  const size_t smem = (size_t)(2 * BK + 2 * STAGES * BQ) * DK * sizeof(bf16) +
+                      2 * STAGES * BQ * sizeof(float) + STAGES * sizeof(uint64_t);
+  Maps m;
+  if (!make_maps(&m, a, BQ, BK, DK / 8)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma<DN, BQ>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_bf16<DP><<<dim3((a.Sq + BQQ - 1) / BQQ, a.H, a.B), NTH, smem, st>>>(a);
+  const int tiles = (a.Skv + BK - 1) / BK + (a.nsrc == 2 ? (a.Skv_ref + BK - 1) / BK : 0);
+  flash_bwd_dkv_wgmma<DN, BQ>
+      <<<dim3(tiles, a.H, a.B), NTH * WGS, smem, st>>>(a, m);
   return (int)cudaGetLastError();
 }
+
+// The N width of the D-wide products: the smallest instantiated width >= D
+// (the columns past D read the zero-filled padding chunks and are not
+// stored).
+template <template <int> class F>
+int by_width(const BwdArgs& a, cudaStream_t st) {
+  if (a.D <= 16) return F<16>::run(a, st);
+  if (a.D <= 32) return F<32>::run(a, st);
+  if (a.D <= 40) return F<40>::run(a, st);
+  if (a.D <= 64) return F<64>::run(a, st);
+  if (a.D <= 80) return F<80>::run(a, st);
+  if (a.D <= 128) return F<128>::run(a, st);
+  return F<160>::run(a, st);
+}
+template <int DN>
+struct DqBf16 {
+  static int run(const BwdArgs& a, cudaStream_t st) { return launch_dq_bf16<DN>(a, st); }
+};
+template <int DN>
+struct DkvBf16 {
+  static int run(const BwdArgs& a, cudaStream_t st) { return launch_dkv_bf16<DN>(a, st); }
+};
 
 template <int DPL>
 int launch_dkv_f32(const BwdArgs& a, cudaStream_t st) {
@@ -677,8 +939,8 @@ int launch_dq_f32(const BwdArgs& a, cudaStream_t st) {
 }
 
 BwdArgs make_args(const void* const* ptrs, const float* lse, const float* ref_scale,
-                  const int* dims, const long long* strides, float scale_log2,
-                  float sm_scale) {
+                  float* delta, const int* dims, const long long* strides,
+                  float scale_log2, float sm_scale) {
   BwdArgs a;
   a.q = ptrs[0]; a.k = ptrs[1]; a.v = ptrs[2]; a.kr = ptrs[3]; a.vr = ptrs[4];
   a.g = ptrs[5]; a.o = ptrs[6]; a.o2 = ptrs[7];
@@ -687,7 +949,7 @@ BwdArgs make_args(const void* const* ptrs, const float* lse, const float* ref_sc
   a.dv = const_cast<void*>(ptrs[10]);
   a.dkr = const_cast<void*>(ptrs[11]);
   a.dvr = const_cast<void*>(ptrs[12]);
-  a.lse = lse; a.ref_scale = ref_scale;
+  a.lse = lse; a.ref_scale = ref_scale; a.delta = delta;
   a.B = dims[0]; a.H = dims[1]; a.Sq = dims[2]; a.Skv = dims[3];
   a.Skv_ref = dims[4]; a.D = dims[5]; a.nsrc = dims[6];
   for (int i = 0; i < 13; ++i)
@@ -700,35 +962,29 @@ BwdArgs make_args(const void* const* ptrs, const float* lse, const float* ref_sc
 }  // namespace
 
 // ptrs: 13 device pointers (q k v kr vr g o o2 dq dk dv dkr dvr; the
-// reference ones null with one source); dims: B H Sq Skv Skv_ref D nsrc;
-// strides: 13 (batch, seq, head) triples in the same order. Each returns a
-// CUDA error code; 1 (cudaErrorInvalidValue) for an unsupported D.
+// reference ones null with one source); delta: the (B, H, nsrc, Sq) fp32 D_i
+// buffer, written by the dq launch and read by the dkv launch (bf16), which
+// must come after it on the stream; dims: B H Sq Skv Skv_ref D nsrc; strides:
+// 13 (batch, seq, head) triples in the same order. Each returns a CUDA error
+// code; 1 (cudaErrorInvalidValue) for an unsupported D.
 #define BWD_ARGS                                                               \
   const void *const *ptrs, const float *lse, const float *ref_scale,           \
-      const int *dims, const long long *strides, float scale_log2,             \
-      float sm_scale, void *stream
+      float *delta, const int *dims, const long long *strides,                 \
+      float scale_log2, float sm_scale, void *stream
 #define MAKE_BWD                                                               \
-  const BwdArgs a = make_args(ptrs, lse, ref_scale, dims, strides, scale_log2, \
-                              sm_scale);                                       \
+  const BwdArgs a = make_args(ptrs, lse, ref_scale, delta, dims, strides,      \
+                              scale_log2, sm_scale);                           \
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);                    \
   if (a.D % 8 != 0 || a.D > 160) return (int)cudaErrorInvalidValue;
 
-extern "C" int flash_bwd_dkv_bf16_launch(BWD_ARGS) {
-  MAKE_BWD
-  if (a.D <= 48) return launch_dkv_bf16<48, 64>(a, st);
-  if (a.D <= 64) return launch_dkv_bf16<64, 64>(a, st);
-  if (a.D <= 80) return launch_dkv_bf16<80, 64>(a, st);
-  if (a.D <= 128) return launch_dkv_bf16<128, 32>(a, st);
-  return launch_dkv_bf16<160, 32>(a, st);
-}
-
 extern "C" int flash_bwd_dq_bf16_launch(BWD_ARGS) {
   MAKE_BWD
-  if (a.D <= 48) return launch_dq_bf16<48>(a, st);
-  if (a.D <= 64) return launch_dq_bf16<64>(a, st);
-  if (a.D <= 80) return launch_dq_bf16<80>(a, st);
-  if (a.D <= 128) return launch_dq_bf16<128>(a, st);
-  return launch_dq_bf16<160>(a, st);
+  return by_width<DqBf16>(a, st);
+}
+
+extern "C" int flash_bwd_dkv_bf16_launch(BWD_ARGS) {
+  MAKE_BWD
+  return by_width<DkvBf16>(a, st);
 }
 
 extern "C" int flash_bwd_dkv_f32_launch(BWD_ARGS) {

@@ -12,8 +12,10 @@ become two CUDA sources:
     same kernels: also each source's base-2 log-sum-exp and the reference
     source's output O2, and no row is ever skipped;
   * K6a `_bwd_dkv_kernel` and K6b `_bwd_dq_kernel` -> `csrc/flash_bwd.cu`:
-    dK/dV per key tile and dQ per query tile, probabilities recomputed from
-    the saved log-sum-exp, the delta term from the stored O and O2.
+    wgmma kernels for dK/dV per key tile and dQ per query tile, probabilities
+    recomputed from the saved log-sum-exp; K6b runs first and also writes
+    the delta term D_i (from the stored O and O2) once per row, which K6a
+    reads.
 
 The kernels read q/k/v in their (B, S, H, D) layout by strides, so the JAX
 wrapper's fold to (BH, S, D) and its concatenated KV axis are not needed.
@@ -24,7 +26,7 @@ kernels fold it into bf16 q instead; PARITY.md). The plain versions do the
 same.
 
 `flash_attention` is differentiable. When grad mode is on and any operand
-requires a gradient, it runs `FlashAttentionFunction` (K5 forward, K6a/K6b
+requires a gradient, it runs `FlashAttentionFunction` (K5 forward, K6b/K6a
 backward); otherwise K1. A CUDA tensor launches the kernels or raises; a CPU
 tensor runs the plain versions (`flash_attention_plain`,
 `flash_attention_res_plain`, `flash_attention_bwd_plain`), which repeat the
@@ -112,6 +114,27 @@ def flash_attention_res_plain(q: torch.Tensor, k: torch.Tensor,
             o2.to(q.dtype))
 
 
+def flash_attention_delta_plain(g: torch.Tensor, out: torch.Tensor,
+                                o2: Optional[torch.Tensor],
+                                ref_scale: Optional[torch.Tensor]
+                                ) -> torch.Tensor:
+    """The D_i that K6b writes for K6a (`_bwd_di`): (B, H, n_sources, Sq)
+    fp32, from the stored out and o2, never from an exact O1. One source:
+    rowsum(g * out); two: rowsum(g * (out - s * o2)) and s * rowsum(g * o2).
+    """
+    g32, o32 = g.float(), out.float()
+
+    def rowsum(x):  # (B, Sq, H, D) -> (B, H, Sq)
+        return x.sum(-1).permute(0, 2, 1)
+
+    if o2 is None:
+        return rowsum(g32 * o32)[:, :, None]
+    s = ref_scale.float()
+    o2_32 = o2.float()
+    return torch.stack([rowsum(g32 * (o32 - s.reshape(-1, 1, 1, 1) * o2_32)),
+                        s.reshape(-1, 1, 1) * rowsum(g32 * o2_32)], dim=2)
+
+
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, k_ref: Optional[torch.Tensor],
                               v_ref: Optional[torch.Tensor],
@@ -121,40 +144,32 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     """K6a + K6b's function: (dq, dk, dv, dk_ref, dv_ref), the reference pair
     None with one source. The upstream gradient of the reference source is
     s*g rounded to the input dtype; D_i comes from the stored out and o2
-    (`_bwd_di`); p and dS are rounded to the input dtype before their
-    products. A scale-0 row's reference gradients are exactly zero."""
+    (`flash_attention_delta_plain`); p and dS are rounded to the input dtype
+    before their products. A scale-0 row's reference gradients are exactly
+    zero."""
     dt = q.dtype
     sl = LOG2E / math.sqrt(q.shape[-1])
     sm = 1.0 / math.sqrt(q.shape[-1])
-    qf, g32, o32 = q.float(), g.float(), out.float()
+    qf, g32 = q.float(), g.float()
+    delta = flash_attention_delta_plain(g, out, o2, ref_scale)
 
-    def source(k_, v_, lse_s, coeff, di):
+    def source(k_, v_, i, coeff):
         g_e = (g32 * coeff.reshape(-1, 1, 1, 1)).to(dt).float()
         s = torch.einsum("bqhd,bkhd->bhqk", qf, k_.float()) * sl
-        p = torch.exp2(s - lse_s[..., None])
+        p = torch.exp2(s - lse[:, :, i, :, None])
         dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), g_e)
         dp = torch.einsum("bqhd,bkhd->bhqk", g_e, v_.float())
-        ds = (p * (dp - di[..., None])).to(dt).float()
+        ds = (p * (dp - delta[:, :, i, :, None])).to(dt).float()
         dq = sm * torch.einsum("bhqk,bkhd->bqhd", ds, k_.float())
         dk = sm * torch.einsum("bhqk,bqhd->bkhd", ds, qf)
         return dq, dk, dv
 
-    def rowsum(x):  # (B, Sq, H, D) -> (B, H, Sq)
-        return x.sum(-1).permute(0, 2, 1)
-
     one = torch.ones(q.shape[0], device=q.device)
+    dq, dk, dv = source(k, v, 0, one)
     if k_ref is None:
-        dq, dk, dv = source(k, v, lse[:, :, 0], one, rowsum(g32 * o32))
         return dq.to(dt), dk.to(dt), dv.to(dt), None, None
-    s = ref_scale.float()
-    s4 = s.reshape(-1, 1, 1, 1)
-    o2_32 = o2.float()
-    dq1, dk, dv = source(k, v, lse[:, :, 0], one,
-                         rowsum(g32 * (o32 - s4 * o2_32)))
-    dq2, dkr, dvr = source(k_ref, v_ref, lse[:, :, 1], s,
-                           s.reshape(-1, 1, 1) * rowsum(g32 * o2_32))
-    return ((dq1 + dq2).to(dt), dk.to(dt), dv.to(dt), dkr.to(dt),
-            dvr.to(dt))
+    dq2, dkr, dvr = source(k_ref, v_ref, 1, ref_scale.float())
+    return ((dq + dq2).to(dt), dk.to(dt), dv.to(dt), dkr.to(dt), dvr.to(dt))
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +194,7 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load(_BWD_SOURCE)
     for fn in (lib.flash_bwd_dkv_bf16_launch, lib.flash_bwd_dq_bf16_launch,
                lib.flash_bwd_dkv_f32_launch, lib.flash_bwd_dq_f32_launch):
-        fn.argtypes = [_P] * 5 + [_F, _F, _P]
+        fn.argtypes = [_P] * 6 + [_F, _F, _P]
         fn.restype = _I
     return lib
 
@@ -262,19 +277,31 @@ def _launch_fwd(q, k, v, k_ref, v_ref, scale, residuals: bool):
 
 
 def _launch_bwd(q, k, v, k_ref, v_ref, scale, out, lse, o2, g,
-                parts=("dkv", "dq")):
-    """K6a then K6b -> (dq, dk, dv, dk_ref, dv_ref). `parts` names the
-    kernels to launch (a timing run launches one alone; the gradients of a
-    kernel left out are uninitialised)."""
+                parts=("dq", "dkv"), delta=None):
+    """K6b then K6a -> ((dq, dk, dv, dk_ref, dv_ref), delta): K6b writes D_i
+    (`delta`, (B, H, n_sources, Sq) fp32) and K6a reads it. `parts` names
+    the kernels to launch (a timing run launches one alone; the gradients of
+    a kernel left out are uninitialised, and K6a alone needs the `delta` of
+    an earlier K6b launch on the same inputs)."""
     b, sq, h, d = q.shape
     dual = k_ref is not None
     _check_operand("g", g, b, h, d, q.dtype)
+    stat_shape = (b, h, 2 if dual else 1, sq)
+    if delta is None:
+        if "dq" not in parts:
+            raise ValueError("flash_attention backward: K6a alone needs the "
+                             "delta of an earlier K6b launch")
+        delta = torch.empty(stat_shape, device=q.device, dtype=torch.float32)
+    elif (tuple(delta.shape) != stat_shape or delta.dtype != torch.float32
+          or not delta.is_contiguous()):
+        raise ValueError(f"flash_attention backward: delta {delta.shape} "
+                         f"{delta.dtype}, want {stat_shape} float32")
     grads = [torch.empty_like(t) for t in (q, k, v)]
     grads += [torch.empty_like(k_ref), torch.empty_like(v_ref)] if dual \
         else [None, None]
     ordered = [q, k, v, k_ref, v_ref, g, out, o2] + grads
     _build.check_operands("flash_attention backward",
-                          *(t for t in ordered if t is not None), lse,
+                          *(t for t in ordered if t is not None), lse, delta,
                           *((scale,) if dual else ()))
     stand_in = [t if t is not None else q for t in ordered]
     strides = _strides(*stand_in)
@@ -286,22 +313,22 @@ def _launch_bwd(q, k, v, k_ref, v_ref, scale, out, lse, o2, g,
     lib = _bwd_lib()
     bf16 = q.dtype == torch.bfloat16
     args = (ctypes.cast(ptrs, ctypes.c_void_p), lse.data_ptr(),
-            scale.data_ptr() if dual else None,
+            scale.data_ptr() if dual else None, delta.data_ptr(),
             ctypes.cast(dims, ctypes.c_void_p),
             ctypes.cast(strides, ctypes.c_void_p), LOG2E / math.sqrt(d),
             1.0 / math.sqrt(d), _build.stream_handle(q.device))
     key = (b, sq, h, d, dual)
-    if "dkv" in parts:
-        fn = lib.flash_bwd_dkv_bf16_launch if bf16 \
-            else lib.flash_bwd_dkv_f32_launch
-        _build.check(fn(*args), "flash_attention backward (K6a)")
-        DKV_COUNTER.add(key)
     if "dq" in parts:
         fn = lib.flash_bwd_dq_bf16_launch if bf16 \
             else lib.flash_bwd_dq_f32_launch
         _build.check(fn(*args), "flash_attention backward (K6b)")
         DQ_COUNTER.add(key)
-    return tuple(grads)
+    if "dkv" in parts:
+        fn = lib.flash_bwd_dkv_bf16_launch if bf16 \
+            else lib.flash_bwd_dkv_f32_launch
+        _build.check(fn(*args), "flash_attention backward (K6a)")
+        DKV_COUNTER.add(key)
+    return tuple(grads), delta
 
 
 # ---------------------------------------------------------------------------
@@ -324,7 +351,7 @@ def flash_attention_bwd(q, k, v, k_ref, v_ref, scale, out, lse, o2, g):
         return flash_attention_bwd_plain(q, k, v, k_ref, v_ref, scale, out,
                                          lse, o2, g)
     _check_inputs(q, k, v, k_ref, v_ref, MAX_GRAD_HEAD_DIM)
-    return _launch_bwd(q, k, v, k_ref, v_ref, scale, out, lse, o2, g)
+    return _launch_bwd(q, k, v, k_ref, v_ref, scale, out, lse, o2, g)[0]
 
 
 class FlashAttentionFunction(torch.autograd.Function):

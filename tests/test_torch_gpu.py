@@ -177,6 +177,46 @@ def test_flash_backward_kernels_match_plain(cuda, dtype):
     assert not got[3][0].any() and not got[4][0].any()
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [40, 160])
+@pytest.mark.parametrize("sq,skv,sref", [(100, 100, 37), (80, 77, 130)])
+def test_flash_backward_ragged_matches_plain(cuda, sq, skv, sref, d, dtype):
+    """K6b + K6a at the ragged lengths of the CPU test of the Function's
+    gradients (masked sequence edges; at D = 40 the zero-filled padding
+    columns), scale [0, 0.7]: the gradients and K6b's D_i against the plain
+    versions."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q, g = (_randn(gen, (2, sq, 2, d), dtype) for _ in range(2))
+    k, v = (_randn(gen, (2, skv, 2, d), dtype) for _ in range(2))
+    kr, vr = (_randn(gen, (2, sref, 2, d), dtype) for _ in range(2))
+    scale = torch.tensor([0.0, 0.7], device="cuda")
+    res = fa.flash_attention_res_plain(q, k, v, kr, vr, scale)
+    got, delta = fa._launch_bwd(q, k, v, kr, vr, scale, *res, g)
+    want = fa.flash_attention_bwd_plain(q, k, v, kr, vr, scale, *res, g)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        _close(a, b, dtype)
+    want_delta = fa.flash_attention_delta_plain(g, res[0], res[2], scale)
+    err = (delta - want_delta).abs().max().item()
+    assert err <= 1e-5 + 1e-5 * want_delta.abs().max().item(), err
+    assert not got[3][0].any() and not got[4][0].any()
+
+
+def test_flash_backward_is_deterministic(cuda):
+    """The pair twice on the same inputs at the main training shape gives
+    bit-identical gradients and D_i: no atomics, a fixed summation order."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, kr, vr, g = (_randn(gen, (1, 5120, 8, 40), torch.bfloat16)
+                          for _ in range(6))
+    scale = torch.tensor([1.0], device="cuda")
+    res = fa.flash_attention_res_plain(q, k, v, kr, vr, scale)
+    first = fa._launch_bwd(q, k, v, kr, vr, scale, *res, g)
+    second = fa._launch_bwd(q, k, v, kr, vr, scale, *res, g)
+    torch.cuda.synchronize()
+    for a, b in zip((*first[0], first[1]), (*second[0], second[1])):
+        assert torch.equal(a, b)
+
+
 def test_full_width_training_step_runs_through_the_kernels(cuda):
     """Full SD1.5 widths, 512x640, batch 1, bf16 + fp32 masters: two steps,
     finite losses, the training kernels launched."""

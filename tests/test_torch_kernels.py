@@ -21,6 +21,7 @@ import imagdressing_tpu.kernels.fused_gn_conv as jfgc
 import imagdressing_tpu.kernels.fused_groupnorm as jfg
 from imagdressing_tpu_torch.kernels.flash_attention import (
     flash_attention,
+    flash_attention_delta_plain,
     flash_attention_res_plain,
 )
 from imagdressing_tpu_torch.kernels.fused_gn_conv import gn_silu_conv3x3
@@ -200,6 +201,31 @@ def test_flash_grads_ragged_match_xla_autodiff(sq, skv, sref):
                                    err_msg=f"grad {i}")
     # the scale-0 row's reference gradients are exactly zero
     assert not got[3][0].any() and not got[4][0].any()
+
+
+@pytest.mark.parametrize("dual", [True, False])
+def test_flash_delta_matches_bwd_di(dual):
+    """The D_i that K6b writes for K6a, against the JAX kernels' in-kernel
+    `_bwd_di` per (batch row, head, source): from the stored out and o2,
+    scale [0, 0.7]. fp32, atol 1e-6 of max|ref| (sum order only)."""
+    rng = np.random.default_rng(21 + dual)
+    b, s, h, d = 2, 64, 2, 40
+    g, out, o2 = (rng.standard_normal((b, s, h, d)).astype(np.float32)
+                  for _ in range(3))
+    scale = np.array([0.0, 0.7], np.float32)
+    got = flash_attention_delta_plain(
+        _t(g), _t(out), _t(o2) if dual else None,
+        _t(scale) if dual else None).numpy()
+    nsrc = 2 if dual else 1
+    assert got.shape == (b, h, nsrc, s) and got.dtype == np.float32
+    want = np.stack([np.stack([np.stack([
+        np.asarray(jfa._bwd_di(
+            jnp.asarray(g[i, :, j]), jnp.asarray(out[i, :, j])[None],
+            jnp.asarray(o2[i, :, j])[None] if dual else None,
+            jnp.float32(scale[i] if dual else 0.0), src == 1, nsrc))[:, 0]
+        for src in range(nsrc)]) for j in range(h)]) for i in range(b)])
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-6 * np.abs(want).max())
 
 
 # ---------------------------------------------------------------------------
