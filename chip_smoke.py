@@ -8,9 +8,11 @@ Phases, each printing one line:
   3. check: every kernel against its plain PyTorch version on the card, in
      bf16 and fp32, at the main paths' shapes: the inference kernels, the
      training forward with residuals and both backward kernels (with K6b's
-     D_i, and at ragged lengths), and the gradients of the GN+conv and
-     GroupNorm autograd Functions; then determinism: the backward pair twice
-     on the same inputs must give bit-identical results;
+     D_i, and at ragged lengths), the GN+conv at the deep UNet levels (split
+     K) and at a ragged shape, and the gradients of the GN+conv and
+     GroupNorm autograd Functions; then determinism: the backward pair and
+     the GN+conv (split K and not) twice on the same inputs must give
+     bit-identical results;
   4. mini: a small fp32 stack run end to end on the card and on the CPU (the
      CPU runs every kernel's plain version): the outputs must agree;
   5. mini_train: two training steps of the same small stack on the card and
@@ -19,7 +21,9 @@ Phases, each printing one line:
   6. time: each kernel's CUDA-event time at a main-path shape, beside its
      plain version's, the PyTorch library call's, and the card's bound
      (bytes, tensor-core FLOPs, and for the flash kernels exp2 per (q, k)
-     pair); the backward pair's time beside its function's bound;
+     pair); the backward pair's time beside its function's bound; the
+     GN+conv also at the deep UNet shapes where its time goes, with its
+     normalize pass timed alone and the plan (tiles, K splits) of each;
   7. main: the `basic` preset through DressingModels / DressingPipeline at
      full SD1.5 width, 512x640, bf16, 30 DDIM steps, with per-stage wall
      times, peak memory, and each kernel's launches in that run;
@@ -152,7 +156,11 @@ def flash_case(b, s, h, d, dual, dtype, seed):
                 exp2=float(sources * h * s * s))
 
 
-def gn_conv_case(b, h, w, cin, co, with_add, dtype, seed):
+def gn_conv_case(b, h, w, cin, co, with_add, dtype, seed, groups=32):
+    """K2/K4 against the plain version; library: F.group_norm, F.silu and
+    cuDNN's conv, three calls the port never makes. graph=True: the deep
+    shapes take tens of microseconds behind more host time, so the device
+    time comes from CUDA-graph replays (eager times beside it)."""
     import torch
     import torch.nn.functional as F
 
@@ -171,20 +179,31 @@ def gn_conv_case(b, h, w, cin, co, with_add, dtype, seed):
     cb = rnd((co,))
     add = rnd((b, cin)) if with_add else None
     args = (x, gw, gb, wt, cb)
-    kw = dict(num_groups=32, eps=1e-5, add=add)
+    kw = dict(num_groups=groups, eps=1e-5, add=add)
     x_nchw = x.permute(0, 3, 1, 2)
 
     def library():
         xin = x_nchw + add[:, :, None, None] if with_add else x_nchw
-        hh = F.silu(F.group_norm(xin, 32, gw, gb, 1e-5))
+        hh = F.silu(F.group_norm(xin, groups, gw, gb, 1e-5))
         return F.conv2d(hh, wt, cb, padding=1)
+
+    def normalize():
+        scale, shift = fgc.scale_shift(x, gw, gb, add, num_groups=groups,
+                                       eps=1e-5)
+        return lambda: fgc.gn_silu_normalize(x, scale, shift)
 
     flops = 2.0 * b * h * w * 9 * cin * co
     item = x.element_size()
     nbytes = item * (x.numel() + wt.numel() + b * h * w * co)
+    x_bytes = item * x.numel()
+    plan = fgc.conv_plan(b, h, w, cin, co)
     return dict(kernel=lambda: fgc.gn_silu_conv3x3(*args, **kw),
                 plain=lambda: fgc.gn_silu_conv3x3_plain(*args, **kw),
-                library=library, flops=flops, bytes=nbytes)
+                library=library, flops=flops, bytes=nbytes, graph=True,
+                x_bytes=x_bytes,
+                normalize=normalize,
+                plan=dict(tw=plan.tw, th=plan.th, bn=plan.bn,
+                          splits=plan.splits, blocks=plan.blocks))
 
 
 def group_norm_case(shape, act, dtype, seed):
@@ -427,6 +446,22 @@ def group_norm_grad_case(dtype, seed):
                       g)
 
 
+GN_CONV_SHAPES = [(2, 80, 64, 320, 320, True), (2, 20, 16, 2560, 1280, True),
+                  (2, 10, 8, 1280, 1280, True), (2, 10, 8, 2560, 1280, True),
+                  (2, 20, 16, 1280, 1280, True),
+                  (1, 10, 8, 1280, 1280, True), (2, 80, 64, 960, 320, True),
+                  (1, 640, 512, 256, 128, False),
+                  (1, 160, 128, 512, 512, False), (1, 9, 13, 40, 24, False)]
+# the deep UNet shapes K2 is also timed at: 330, 180 and 90 launches per
+# `basic` image (M = 160, 640 and 160 pixels)
+K2_DEEP_TIMED = ["2x10x8x1280->1280+add", "2x20x16x1280->1280+add",
+                 "2x10x8x2560->1280+add"]
+
+
+def gn_conv_label(b, h, w, cin, co, add):
+    return f"{b}x{h}x{w}x{cin}->{co}" + ("+add" if add else "")
+
+
 # K5 / K6 check shapes: the four UNet self-attention levels of a batch-1
 # training step, dual (main UNet, scale 1) and single (garment UNet), and a
 # batch-2 case with scale [0, 0.7] (the zero-written reference gradients)
@@ -444,18 +479,17 @@ def check_cases():
                                                           else ""),
                       lambda dt, sd, a=(b, s, h, d, dual):
                       flash_case(*a, dt, sd)))
-    for b, h, w, cin, co, add in [(2, 80, 64, 320, 320, True),
-                                  (2, 20, 16, 2560, 1280, True),
-                                  (2, 10, 8, 1280, 1280, True),
-                                  (2, 80, 64, 960, 320, True),
-                                  (1, 640, 512, 256, 128, False),
-                                  (1, 160, 128, 512, 512, False)]:
+    # K2 / K4: the timed shape, the deep UNet levels where its time goes
+    # (split K; batch 1 for the garment UNet and training), a concat input,
+    # the VAE's pixel levels, and a ragged shape whose H, W, Cin and Cout
+    # fit no tile (8 groups of 5 channels)
+    for b, h, w, cin, co, add in GN_CONV_SHAPES:
         name = "gn_silu_conv3x3[vae_pixel]" if h * w > 80 * 64 \
             else "gn_silu_conv3x3"
-        cases.append((name, f"{b}x{h}x{w}x{cin}->{co}" + ("+add" if add
-                                                         else ""),
+        cases.append((name, gn_conv_label(b, h, w, cin, co, add),
                       lambda dt, sd, a=(b, h, w, cin, co, add):
-                      gn_conv_case(*a, dt, sd)))
+                      gn_conv_case(*a, dt, sd, groups=32 if a[3] % 32 == 0
+                                   else 8)))
     for shape, act in [((2, 5120, 320), "none"), ((2, 80, 64, 320), "silu")]:
         cases.append(("group_norm_act", "x".join(map(str, shape)) + act,
                       lambda dt, sd, a=(shape, act): group_norm_case(*a, dt,
@@ -572,8 +606,23 @@ def phase_check():
 
 def phase_determinism():
     """K6b + K6a twice on the same inputs at the main shape: bit-identical
-    gradients and D_i (no atomics, a fixed summation order)."""
+    gradients and D_i (no atomics, a fixed summation order); K2 twice at a
+    split-K shape and at its timed shape (the split partials added in a
+    fixed order)."""
     import torch
+
+    for shape in [(2, 10, 8, 1280, 1280, True), (2, 80, 64, 320, 320, True)]:
+        case = gn_conv_case(*shape, torch.bfloat16, 8)
+        first = case["kernel"]()
+        second = case["kernel"]()
+        torch.cuda.synchronize()
+        same = bool(torch.equal(first, second))
+        emit("determinism", kernel="gn_silu_conv3x3",
+             shape=gn_conv_label(*shape), dtype="bf16", plan=case["plan"],
+             bit_equal={"out": same}, ok=same)
+        if not same:
+            raise SmokeFailure(f"K2 repeat not bit-identical at {shape}")
+        del case, first, second
 
     case = flash_bwd_case(1, 5120, 8, 40, True, [1.0], torch.bfloat16, 7)
     first = case["kernel"]()
@@ -581,7 +630,8 @@ def phase_determinism():
     torch.cuda.synchronize()
     same = {out: bool(torch.equal(a, b)) for out, a, b in
             zip(case["outputs"], first, second) if a is not None}
-    emit("determinism", shape="1x5120x8x40dual", dtype="bf16",
+    emit("determinism", kernel="flash_bwd", shape="1x5120x8x40dual",
+         dtype="bf16",
          bit_equal=same, ok=all(same.values()))
     if not all(same.values()):
         raise SmokeFailure(f"K6 repeat not bit-identical: {same}")
@@ -604,19 +654,20 @@ def phase_time():
                                                   dt, sd, part=p))
     dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
     exp2_rate = exp2_per_ms()
-    timings = {}
-    for name, label in TIMED.items():
-        dn = TIMED_DTYPE.get(name, "bf16")
+
+    def timed(name, label, dn):
         case = by_label[(name, label)](dtypes[dn], 1000)
         ms = cuda_ms(case["kernel"])
         plain_ms = cuda_ms(case["plain"])
         library_ms = cuda_ms(case["library"])
-        eager = {}
+        extra = {}
         if case.get("graph"):
-            eager = dict(eager_ms=ms, eager_plain_ms=plain_ms,
+            extra = dict(eager_ms=ms, eager_plain_ms=plain_ms,
                          eager_library_ms=library_ms)
             ms, plain_ms, library_ms = (cuda_graph_ms(case[k]) for k in
                                         ("kernel", "plain", "library"))
+        if "plan" in case:
+            extra["plan"] = case["plan"]
         terms = {"bytes": case["bytes"] / HBM_BYTES_PER_S * 1e3,
                  "tensor": case["flops"] / case.get("flops_per_s",
                                                     BF16_FLOPS_PER_S) * 1e3,
@@ -625,10 +676,20 @@ def phase_time():
         row = dict(shape=label, dtype=dn, ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=terms[unit],
                    bound_by="bytes" if unit == "bytes" else "operations",
-                   bound_unit=unit, bound_terms_ms=terms, **eager)
-        timings[name] = row
+                   bound_unit=unit, bound_terms_ms=terms,
+                   tflops=case["flops"] / ms / 1e9, **extra)
+        if name == "gn_silu_conv3x3" and label == TIMED[name]:
+            # the normalize pass alone: one read of x, one write of h
+            row["normalize_ms"] = cuda_graph_ms(case["normalize"]())
+            row["normalize_bound_ms"] = 2.0 * case["x_bytes"] \
+                / HBM_BYTES_PER_S * 1e3
         emit("time", kernel=name, **row)
-        del case
+        return row
+
+    timings = {name: timed(name, label, TIMED_DTYPE.get(name, "bf16"))
+               for name, label in TIMED.items()}
+    for label in K2_DEEP_TIMED:
+        timed("gn_silu_conv3x3", label, "bf16")
     # the pair K6b + K6a in one call, beside the function's own bound: 5
     # products per (q, k) pair (dQ, dK, dV, S and dP once each) and one exp2
     case = by_label[("flash_bwd", "1x5120x8x40dual")](torch.bfloat16, 1000)
@@ -816,6 +877,7 @@ def phase_main(counters):
     import torch
 
     from imagdressing_tpu_torch.core.config import PRESETS
+    from imagdressing_tpu_torch.kernels import fused_gn_conv as fgc
     from imagdressing_tpu_torch.pipelines.dressing import (
         DressingModels,
         DressingPipeline,
@@ -870,10 +932,13 @@ def phase_main(counters):
     counts = {"flash_fwd": flash_n, "gn_silu_conv3x3": conv_n - pixel_n,
               "gn_silu_conv3x3[vae_pixel]": pixel_n,
               "group_norm_act": launches["group_norm_act"][0]}
+    plans = {str(k): dataclasses.astuple(fgc.conv_plan(*k))[:4]
+             for k in conv_shapes}
     emit("main", steps=STEPS, size=f"{w}x{h}", init_s=init_s,
          first_call_s=first_s, total_s=total_s, stage_s=stages,
          peak_gib=peak / 2**30, launches=counts,
-         conv_launches_by_shape={str(k): v for k, v in conv_shapes.items()})
+         conv_launches_by_shape={str(k): v for k, v in conv_shapes.items()},
+         conv_plans_tw_th_bn_splits=plans)
     zero = [k for k, n in counts.items() if n == 0]
     if zero:
         raise SmokeFailure(f"kernels never launched on the main path: {zero}")

@@ -67,9 +67,8 @@
 //
 // The fp32 variants (parity mode) are SIMT kernels: a warp per key row (K6a)
 // or per query row (K6b), D spread over the lanes.
-#include <cuda.h>  // CUtensorMap (the encoder is reached through the runtime)
-
 #include "common.cuh"
+#include "sm90.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -135,39 +134,9 @@ __device__ __forceinline__ long long stat_row(const BwdArgs& a, int b, int h, in
 }
 
 // ---------------------------------------------------------------------------
-// sm_90 building blocks: TMA, mbarriers, cp.async, fences, wgmma descriptors
+// sm_90 building blocks of this file (the shared ones are in sm90.cuh)
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-// the one arrival of a stage's phase, announcing the bytes its loads bring
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// Wait for the phase of `parity` to complete. A wait that never ends (a
-// load never asked for) traps after ~2^28 polls, so the launch fails with an
-// error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  for (long long spin = 0; !done; ++spin) {
-    if (spin > (1ll << 28)) asm volatile("trap;");
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
 // One tile (the map's box: rows s .. s + R - 1 of head h, batch b, every
 // column chunk) into shared memory in the tile layout below; past-the-end
 // rows and columns arrive as zeros.
@@ -192,38 +161,11 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
-// generic-proxy writes to shared memory (st.shared) -> visible to wgmma's
-// async-proxy reads
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Pin accumulator registers at this point of the program, so that no read
-// or write of them moves across a wgmma issue or wait.
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // A tile of R rows x C columns (bf16, C a multiple of 8) in the no-swizzle
 // core-matrix layout: element (r, c) at ((c / 8) * R + r) * 8 + c % 8.
 template <int R>
 __device__ __forceinline__ int tile_at(int r, int chunk) {
   return (chunk * R + r) * 8;
-}
-__device__ __forceinline__ uint64_t make_desc(const bf16* p, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
 }
 // The k16 step `kk` of a tile read K-major (the columns are the contraction):
 // 8-row groups 128 bytes apart (SBO), the two column chunks R * 16 apart (LBO).
@@ -810,29 +752,6 @@ __global__ void __launch_bounds__(NTH) flash_bwd_dq_f32(const BwdArgs a) {
 // ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query
-// (no -lcuda)
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                     &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
 
 // A map over operand `idx` (a (B, S, H, D) bf16 tensor of length S, by its
 // strides) whose box is one tile: `rows` rows x `chunks` column chunks, laid

@@ -14,30 +14,7 @@
 // mostly hits the 50 MB L2 at UNet sizes. Both passes stream contiguous
 // channel-last rows; the apply pass moves 8 channels (16 bytes of bf16) per
 // thread.
-#include "gn_stats.cuh"
-
-template <typename T>
-__global__ void __launch_bounds__(256)
-gn_apply(const T* __restrict__ x, const float* __restrict__ scale,
-         const float* __restrict__ shift, T* __restrict__ out, long long n8,
-         long long MC, int C, int act_silu) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n8;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long e = i * 8;  // C % 8 == 0: the 8 lie in one (b, row)
-    const long long b = e / MC;
-    const int c = (int)(e % C);
-    const float* sc = scale + b * C + c;
-    const float* sh = shift + b * C + c;
-    float v[8];
-    load8(x + e, v);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float y = v[j] * sc[j] + sh[j];
-      v[j] = act_silu ? silu_f32(y) : y;
-    }
-    store8(out + e, v);
-  }
-}
+#include "gn_stats.cuh"  // the statistics passes and gn_apply
 
 template <typename T>
 static int run(const void* x, const void* add, const void* gamma,
@@ -49,12 +26,8 @@ static int run(const void* x, const void* add, const void* gamma,
                      static_cast<const T*>(gamma), static_cast<const T*>(beta),
                      B, M, C, G, eps, nchunks, rows_per_chunk,
                      static_cast<float2*>(partial), scale, shift, st);
-  const long long n8 = (long long)B * M * C / 8;
-  const long long want = (n8 + 255) / 256;
-  const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
-  gn_apply<T><<<blocks, 256, 0, st>>>(static_cast<const T*>(x), scale, shift,
-                                      static_cast<T*>(out), n8,
-                                      (long long)M * C, C, act_silu);
+  gn_apply_launch<T>(static_cast<const T*>(x), scale, shift, static_cast<T*>(out), B, M, C,
+                     act_silu, st);
   return (int)cudaGetLastError();
 }
 

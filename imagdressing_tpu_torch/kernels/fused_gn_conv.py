@@ -4,15 +4,20 @@ Port of two Pallas kernels of `imagdressing_tpu/kernels/fused_gn_conv.py`
 that compute this one function: `_kernel` (whole batch row resident) and
 `_windowed_kernel` (row windows with one-row halos for the VAE's
 pixel-level activations). On the H100 both become one CUDA op,
-`csrc/gn_conv.cu`: a statistics pass (`csrc/gn_stats.cuh`) and an
-implicit-GEMM conv that normalizes and applies SiLU on the way into shared
-memory, so the normalized activation never reaches device memory.
+`csrc/gn_conv.cu`. In bf16: the GroupNorm statistics
+(`csrc/gn_stats.cuh`), one normalize pass that writes
+`h = silu(x * scale + shift)` in bf16 to a scratch of x's shape, and an
+implicit-GEMM conv over h on Hopper's tensor cores (TMA tiles, wgmma),
+split along K where the pixels are few (`conv_plan`), the split partials
+added in a fixed order by a second pass. In fp32 (parity mode): a SIMT conv
+that normalizes on the way into shared memory.
 
 Every resnet `GN -> SiLU -> conv3x3` chain of the UNet and the VAE goes
 through `gn_silu_conv3x3`, whatever its size: the JAX package's gates
 (`_supported`, `_pick_cot`, `_VMEM_BUDGET`, `_WINDOWED_SHAPES`) are facts of
 the TPU's VMEM and are not carried over. The wrapper's only requirements
-are those of the kernel's vector loads: Cin and Cout multiples of 8.
+are those of the kernel's vector loads and tensor maps: Cin and Cout
+multiples of 8.
 
 Layouts: x NHWC; the conv weight is OIHW in `torch.channels_last` memory,
 i.e. stored as (Cout, 3, 3, Cin), which is what the kernel reads and what
@@ -30,6 +35,9 @@ forward is the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -53,8 +61,8 @@ def gn_silu_conv3x3_plain(x: torch.Tensor, gamma: torch.Tensor,
                           bias: torch.Tensor, *, num_groups: int, eps: float,
                           add: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: fp32 statistics, the
-    normalized activation rounded to x's dtype (the kernel stages it so in
-    shared memory), then the conv."""
+    normalized activation rounded to x's dtype (the bf16 kernel writes it so
+    to its scratch), then the conv."""
     scale, shift = scale_shift(x, gamma, beta, add, num_groups=num_groups,
                                eps=eps)
     h = F.silu(x.float() * scale[:, None, None, :] + shift[:, None, None, :])
@@ -63,13 +71,111 @@ def gn_silu_conv3x3_plain(x: torch.Tensor, gamma: torch.Tensor,
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+# The bf16 conv's tiles (csrc/gn_conv.cu): 128 pixels x BN output channels
+# per block, K steps of one tap x 64 channels, a ring of stages per N width.
+SMS = 132  # streaming multiprocessors of the H100 SXM
+BLOCK_PIXELS = 128
+K_STEP_CHANNELS = 64
+STAGES = {64: 6, 128: 6, 160: 5, 256: 4}
+SMEM_LIMIT = 232448  # bytes of dynamic shared memory a block may use
+MAX_SPLITS = 32
+# Cost model of the plan, in microseconds on the H100 (guesses from the
+# card's rates, to be tuned by measurement): a K step of a 128 x BN tile
+# takes the larger of its tensor work at ~70 % of an SM's share of the
+# 989 TFLOP/s and its tile bytes at an SM's share of ~10 TB/s of L2; a
+# block adds a fixed cost (launch, ring fill, epilogue); a split adds the
+# reduce pass, which reads and writes fp32 partials at 3.35 TB/s.
+_STEP_FLOP_PER_US = 0.7 * 989e6 / SMS
+_STEP_BYTES_PER_US = 10e6 / SMS
+_BLOCK_US = 1.0
+_REDUCE_US = 2.0
+_HBM_BYTES_PER_US = 3.35e6
+
+
+def conv_smem_bytes(bn: int) -> int:
+    """Dynamic shared memory of the bf16 conv at N width `bn` (the ring of
+    A and B tiles and their mbarriers, and 1024 bytes of alignment slack):
+    `conv_smem` in csrc/gn_conv.cu."""
+    return STAGES[bn] * ((BLOCK_PIXELS + bn) * 128 + 8) + 1024
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    """How the bf16 conv covers one shape: pixel tiles of `th` rows x `tw`
+    columns of one image (th * tw = 128), N tiles of `bn` channels, and the
+    K steps (9 taps x ceil(Cin / 64) channel steps) cut into `splits`
+    balanced ranges, split s taking steps [s*K // splits, (s+1)*K //
+    splits): every split gets floor or ceil of K / splits steps."""
+    tw: int
+    th: int
+    bn: int
+    splits: int
+    mtiles: int
+    ntiles: int
+    ksteps: int
+    est_us: float
+
+    @property
+    def blocks(self) -> int:
+        return self.mtiles * self.ntiles * self.splits
+
+
+def _plan_cost(mtiles, ntiles, ksteps, bn, splits, m, cout):
+    blocks = mtiles * ntiles * splits
+    step_us = max(2.0 * BLOCK_PIXELS * bn * K_STEP_CHANNELS / _STEP_FLOP_PER_US,
+                  (BLOCK_PIXELS + bn) * 128 / _STEP_BYTES_PER_US)
+    us = math.ceil(blocks / SMS) * (_BLOCK_US + math.ceil(ksteps / splits)
+                                    * step_us)
+    if splits > 1:
+        us += _REDUCE_US + (splits + 1) * 4.0 * m * cout / _HBM_BYTES_PER_US
+    return us
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(b: int, h: int, w: int, cin: int, cout: int) -> ConvPlan:
+    """The bf16 conv's tiles and K splits for x (b, h, w, cin) -> cout.
+
+    The pixel tile is the narrowest power-of-two width that spans a row
+    (at most 128), stacked to 128 pixels. Among the N widths and split
+    counts, the cheapest by the cost model above, under one rule: where M =
+    b*h*w <= 640 pixels (the deep UNet levels, whose 128-pixel tiles are
+    few), the launch must have at least one wave of blocks (one per SM of
+    the card) when the K steps allow it. Cached per shape: the search
+    costs more host time than a deep-level launch takes on the card."""
+    tw = min(BLOCK_PIXELS, 1 << max(0, (w - 1).bit_length()))
+    th = BLOCK_PIXELS // tw
+    mtiles = b * math.ceil(h / th) * math.ceil(w / tw)
+    ksteps = 9 * math.ceil(cin / K_STEP_CHANNELS)
+    m = b * h * w
+    best = None
+    for bn in STAGES:
+        ntiles = math.ceil(cout / bn)
+        max_splits = min(ksteps, MAX_SPLITS)
+        for splits in range(1, max_splits + 1):
+            blocks = mtiles * ntiles * splits
+            if m <= 640 and blocks < SMS and splits < max_splits:
+                continue
+            us = _plan_cost(mtiles, ntiles, ksteps, bn, splits, m, cout)
+            if best is None or us < best.est_us:
+                best = ConvPlan(tw, th, bn, splits, mtiles, ntiles, ksteps,
+                                us)
+    return best
+
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
+    """The built library with its functions typed, once per process."""
     lib = _build.load(_SOURCE)
-    for fn in (lib.gn_silu_conv3x3_bf16, lib.gn_silu_conv3x3_f32):
-        fn.argtypes = [_P] * 10 + [_I] * 6 + [_F, _I, _I, _P]
+    lib.gn_silu_conv3x3_bf16.argtypes = [_P] * 12 + [_I] * 6 + [_F] + \
+        [_I] * 5 + [_P]
+    lib.gn_silu_conv3x3_f32.argtypes = [_P] * 10 + [_I] * 6 + [_F, _I, _I,
+                                                               _P]
+    lib.gn_silu_normalize_bf16.argtypes = [_P] * 4 + [_I] * 3 + [_P]
+    for fn in (lib.gn_silu_conv3x3_bf16, lib.gn_silu_conv3x3_f32,
+               lib.gn_silu_normalize_bf16):
         fn.restype = _I
     return lib
 
@@ -161,18 +267,56 @@ def _launch(x, gamma, beta, weight, bias, add, num_groups, eps):
                           *([addc] if addc is not None else []))
     nchunks, per = stats_chunks(b, h * w)
     out = torch.empty((b, h, w, cout), device=x.device, dtype=x.dtype)
-    partial = torch.empty((b, nchunks, cin, 2), device=x.device,
-                          dtype=torch.float32)
-    scale = torch.empty((b, cin), device=x.device, dtype=torch.float32)
-    shift = torch.empty_like(scale)
-    lib = _lib()
-    fn = lib.gn_silu_conv3x3_bf16 if x.dtype == torch.bfloat16 \
-        else lib.gn_silu_conv3x3_f32
-    rc = fn(x.data_ptr(), addc.data_ptr() if addc is not None else None,
-            params[0].data_ptr(), params[1].data_ptr(), wt.data_ptr(),
-            params[2].data_ptr(), out.data_ptr(), partial.data_ptr(),
-            scale.data_ptr(), shift.data_ptr(), b, h, w, cin, cout,
-            num_groups, eps, nchunks, per, _build.stream_handle(x.device))
+    bf = x.dtype == torch.bfloat16
+    plan = conv_plan(b, h, w, cin, cout) if bf else None
+    # One fp32 workspace, carved by offset: the statistics partials
+    # (b, nchunks, cin, 2), scale and shift (b, cin) each, and in bf16 the
+    # normalized activation h (x's shape, bf16) and, with split K, the
+    # conv's partials (splits, M, cout). Every piece starts 16-byte aligned
+    # (cin and cout are multiples of 8).
+    n_part, n_ss = b * nchunks * cin * 2, b * cin
+    n_h = x.numel() // 2 if bf else 0
+    n_kpart = plan.splits * b * h * w * cout if bf and plan.splits > 1 \
+        else 0
+    ws = torch.empty(n_part + 2 * n_ss + n_h + n_kpart, device=x.device,
+                     dtype=torch.float32)
+    base = ws.data_ptr()
+    scale_p = base + 4 * n_part
+    shift_p = scale_p + 4 * n_ss
+    h_p = shift_p + 4 * n_ss
+    kpart_p = h_p + 4 * n_h if n_kpart else None
+    stream = _build.stream_handle(x.device)
+    common = (x.data_ptr(), addc.data_ptr() if addc is not None else None,
+              params[0].data_ptr(), params[1].data_ptr(), wt.data_ptr(),
+              params[2].data_ptr(), out.data_ptr(), base, scale_p, shift_p)
+    if bf:
+        rc = _lib().gn_silu_conv3x3_bf16(
+            *common, h_p, kpart_p, b, h, w, cin, cout, num_groups, eps,
+            nchunks, per, plan.tw, plan.bn, plan.splits, stream)
+    else:
+        rc = _lib().gn_silu_conv3x3_f32(*common, b, h, w, cin, cout,
+                                        num_groups, eps, nchunks, per,
+                                        stream)
     _build.check(rc, "gn_silu_conv3x3")
     COUNTER.add((b, h, w, cin, cout))
+    return out
+
+
+def gn_silu_normalize(x: torch.Tensor, scale: torch.Tensor,
+                      shift: torch.Tensor) -> torch.Tensor:
+    """The bf16 op's normalize pass alone, `silu(x * scale + shift)` rounded
+    to bf16 (x (B, H, W, C) bf16 on the card, scale/shift (B, C) fp32): for
+    timing it apart. Not counted as a launch of the op."""
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16 \
+            or not x.is_contiguous() or x.shape[-1] % 8:
+        raise ValueError("gn_silu_normalize: contiguous bf16 NHWC on the "
+                         "card, C a multiple of 8")
+    scale, shift = (t.float().contiguous() for t in (scale, shift))
+    _build.check_operands("gn_silu_normalize", x, scale, shift)
+    b, c = x.shape[0], x.shape[-1]
+    out = torch.empty_like(x)
+    rc = _lib().gn_silu_normalize_bf16(
+        x.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(), b,
+        x.numel() // (b * c), c, _build.stream_handle(x.device))
+    _build.check(rc, "gn_silu_normalize")
     return out

@@ -23,6 +23,7 @@ output of `GroupNormActFunction`, whose forward is the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -90,7 +91,9 @@ def stats_chunks(batch: int, rows: int) -> Tuple[int, int]:
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
+    """The built library with its functions typed, once per process."""
     lib = _build.load(_SOURCE)
     for fn in (lib.group_norm_act_bf16, lib.group_norm_act_f32):
         fn.argtypes = [_P] * 8 + [_I] * 4 + [_F] + [_I] * 3 + [_P]

@@ -18,7 +18,7 @@ from pathlib import Path
 
 OUT = Path(__file__).resolve().parent.parent / "kernels" / "csrc" / \
     "wgmma.cuh"
-SS_N = (32, 64)
+SS_N = (32, 64, 128, 160, 256)
 RS_N = (16, 32, 40, 64, 80, 128, 160)
 
 HEADER = """\

@@ -6,8 +6,11 @@ Random bf16 weights at full SD1.5 width (the FLOPs and bytes of real
 checkpoints). One warm call, then one call under the profiler. Prints one
 JSON object: wall time, per-stage wall times, the device's busy share of
 the wall window, device time by kernel class and by kernel, and, for the
-two kernels with many shapes (K1, K2), each shape's launches in that call
-and its CUDA-event time.
+two kernels with many shapes (K1, K2), each shape's launches in that call,
+its device time (CUDA-graph replays of the call: the deep UNet shapes take
+less device time than host time), achieved TFLOP/s and bound (the larger of
+tensor FLOPs over 989 TFLOP/s and bytes over 3.35 TB/s), and for K2 the
+plan (pixel tile, N width, K splits).
 
 Usage (on the card's machine, from the repository root):
     python -m imagdressing_tpu_torch.tools.profile_infer [WxH] [steps]
@@ -27,9 +30,10 @@ import numpy as np
 # implicit GEMMs, so convolution markers come before the GEMM ones)
 CLASSES = (
     ("K1 flash_fwd", ("flash_fwd",)),
-    ("K2 gn_conv3x3 (conv part)", ("gn_conv3x3",)),
+    ("K2 split-K reduce", ("splitk_reduce",)),
+    ("K2 conv (wgmma; fp32 SIMT)", ("gn_conv3x3",)),
     ("GN statistics (K2, K3)", ("gn_partial_sums", "gn_finalize")),
-    ("K3 gn_apply", ("gn_apply",)),
+    ("GN normalize (K2's h, K3's output)", ("gn_apply",)),
     ("cuDNN convolution", ("fprop", "conv", "winograd")),
     ("cuBLAS GEMM", ("gemm", "nvjet", "cutlass", "cublas")),
 )
@@ -43,17 +47,43 @@ def classify(name: str) -> str:
     return "elementwise / norm / copy"
 
 
-def _shape_rows(counter, make_call, flops):
-    """Per launch shape of one kernel: launches, CUDA-event ms, the total
-    and the achieved TFLOP/s, the costliest shape first."""
-    from imagdressing_tpu_torch.tools.timing import cuda_ms
+HBM_BYTES_PER_MS = 3.35e9  # H100 SXM, NVIDIA data sheet
+BF16_FLOPS_PER_MS = 989e9  # dense bf16 tensor cores, same source
+
+
+def _shape_rows(counter, make_call, flops, nbytes, extra=lambda *k: {}):
+    """Per launch shape of one kernel: launches, device ms per launch (CUDA
+    graph replays), the total, the achieved TFLOP/s and the bound, the
+    costliest shape first."""
+    from imagdressing_tpu_torch.tools.timing import cuda_graph_ms
 
     rows = []
     for key, n in counter.by_shape.items():
-        ms = cuda_ms(make_call(*key), target_ms=50.0)
+        ms = cuda_graph_ms(make_call(*key), calls=10, replays=10)
+        bound = max(flops(*key) / BF16_FLOPS_PER_MS,
+                    nbytes(*key) / HBM_BYTES_PER_MS)
         rows.append(dict(shape=list(key), launches=n, ms=ms, total_ms=ms * n,
-                         tflops=flops(*key) / ms / 1e9))
+                         tflops=flops(*key) / ms / 1e9, bound_ms=bound,
+                         **extra(*key)))
     return sorted(rows, key=lambda r: -r["total_ms"])
+
+
+def _conv_bytes(b, h, w, cin, co):
+    # bf16 x, weights and out, each once
+    return 2.0 * (b * h * w * (cin + co) + 9 * cin * co)
+
+
+def _conv_plan(b, h, w, cin, co):
+    from imagdressing_tpu_torch.kernels.fused_gn_conv import conv_plan
+
+    p = conv_plan(b, h, w, cin, co)
+    return dict(plan=dict(tw=p.tw, th=p.th, bn=p.bn, splits=p.splits,
+                          blocks=p.blocks))
+
+
+def _flash_bytes(b, s, h, d, dual):
+    # bf16 q, k, v (k_ref, v_ref) read and out written
+    return 2.0 * b * s * h * d * (6 if dual else 4)
 
 
 def _conv_call(b, h, w, cin, co):
@@ -143,8 +173,10 @@ def main(size: str = "512x640", steps: int = 30) -> dict:
                      for k, (ms, n) in top],
         gn_conv_shapes=_shape_rows(
             fgc.COUNTER, _conv_call,
-            lambda b, h, w, cin, co: 2.0 * b * h * w * 9 * cin * co),
-        flash_shapes=_shape_rows(fa.COUNTER, _flash_call, _flash_flops))
+            lambda b, h, w, cin, co: 2.0 * b * h * w * 9 * cin * co,
+            _conv_bytes, _conv_plan),
+        flash_shapes=_shape_rows(fa.COUNTER, _flash_call, _flash_flops,
+                                 _flash_bytes))
     print(json.dumps(result), flush=True)
     return result
 

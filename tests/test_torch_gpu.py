@@ -85,6 +85,49 @@ def test_gn_conv_kernel_matches_plain(cuda, dtype):
     _close(got, want, dtype)
 
 
+def _gn_conv_args(seed, b, h, w, cin, co, with_add):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    bf = torch.bfloat16
+    x = _randn(gen, (b, h, w, cin), bf)
+    gw, gb = 1 + _randn(gen, (cin,), bf, 0.1), _randn(gen, (cin,), bf, 0.1)
+    wt = _randn(gen, (co, cin, 3, 3), bf, (9 * cin) ** -0.5).contiguous(
+        memory_format=torch.channels_last)
+    cb = _randn(gen, (co,), bf)
+    t = _randn(gen, (b, cin), bf) if with_add else None
+    kw = dict(num_groups=32 if cin % 32 == 0 else 8, eps=1e-5, add=t)
+    return (x, gw, gb, wt, cb), kw
+
+
+@pytest.mark.parametrize("shape,split", [((2, 10, 8, 1280, 1280, True), True),
+                                         ((1, 9, 13, 40, 24, False), None)])
+def test_gn_conv_bf16_split_k_and_ragged_match_plain(cuda, shape, split):
+    """The bf16 conv at the deepest UNet level of a CFG step, which the
+    plan splits along K, and at a shape whose H, W, Cin and Cout fit no
+    tile (zero-filled borders, channel tail and N tail)."""
+    if split is not None:
+        assert (fgc.conv_plan(*shape[:5]).splits > 1) == split
+    args, kw = _gn_conv_args(8, *shape)
+    n0 = fgc.COUNTER.count
+    got = fgc.gn_silu_conv3x3(*args, **kw)
+    want = fgc.gn_silu_conv3x3_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert fgc.COUNTER.count == n0 + 1
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    _close(got, want, torch.bfloat16)
+
+
+def test_gn_conv_split_k_is_deterministic(cuda):
+    """The split partials are added in a fixed order: two runs on the same
+    inputs give the same bits."""
+    shape = (2, 20, 16, 2560, 1280, True)
+    assert fgc.conv_plan(*shape[:5]).splits > 1
+    args, kw = _gn_conv_args(9, *shape)
+    first = fgc.gn_silu_conv3x3(*args, **kw)
+    second = fgc.gn_silu_conv3x3(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_group_norm_kernel_matches_plain(cuda, dtype):
     gen = torch.Generator(device="cuda").manual_seed(2)

@@ -24,6 +24,8 @@ from imagdressing_tpu_torch.kernels.flash_attention import (
     flash_attention_delta_plain,
     flash_attention_res_plain,
 )
+from imagdressing_tpu_torch.core.config import UNetConfig, VAEConfig
+from imagdressing_tpu_torch.kernels import fused_gn_conv as fgc
 from imagdressing_tpu_torch.kernels.fused_gn_conv import gn_silu_conv3x3
 from imagdressing_tpu_torch.kernels.fused_groupnorm import group_norm_act
 
@@ -277,6 +279,77 @@ def test_gn_conv_matches_windowed_interpret(shape, with_add):
                                interpret=True)
     np.testing.assert_allclose(_port_gn_conv(x, gw, gb, t, wt, cb),
                                np.asarray(want), atol=2e-4)
+
+
+def _full_width_gn_conv_shapes():
+    """(b, h, w, cin, cout) of every GN+SiLU+conv3x3 of the full-width
+    `basic` path and training step at 512x640: the UNet's resnets (main and
+    garment UNet) at the 80x64 latent, batch 2 (CFG) and 1 (the garment pass,
+    training), and the VAE's encoder and decoder resnets at batch 1 and 2;
+    each resnet's conv1 (cin -> cout) and conv2 (cout -> cout)."""
+    u, v = UNetConfig(), VAEConfig()
+    res = []  # (level, cin, cout) of each resnet
+    ch, nl = u.block_out_channels, u.layers_per_block
+    skips, cin = [ch[0]], ch[0]
+    for lvl, co in enumerate(ch):
+        for _ in range(nl):
+            res.append((lvl, cin, co))
+            cin = co
+            skips.append(co)
+        if lvl < len(ch) - 1:
+            skips.append(co)
+    res += [(len(ch) - 1, cin, cin)] * 2
+    for lvl, co in reversed(list(enumerate(ch))):
+        for _ in range(nl + 1):
+            res.append((lvl, cin + skips.pop(), co))
+            cin = co
+    shapes = set()
+    for b in (1, 2):
+        for lvl, ci, co in res:
+            h, w = 80 >> lvl, 64 >> lvl
+            shapes |= {(b, h, w, ci, co), (b, h, w, co, co)}
+    vres, cin = [], v.block_out_channels[0]
+    for lvl, co in enumerate(v.block_out_channels):  # encoder, 640x512 down
+        for _ in range(v.layers_per_block):
+            vres.append((lvl, cin, co))
+            cin = co
+    vres += [(len(v.block_out_channels) - 1, cin, cin)] * 4  # two mids
+    for lvl, co in reversed(list(enumerate(v.block_out_channels))):
+        for _ in range(v.layers_per_block + 1):  # decoder, 80x64 up
+            vres.append((lvl, cin, co))
+            cin = co
+    for b in (1, 2):
+        for lvl, ci, co in vres:
+            h, w = 640 >> lvl, 512 >> lvl
+            shapes |= {(b, h, w, ci, co), (b, h, w, co, co)}
+    return sorted(shapes)
+
+
+def test_conv_plan_keeps_the_kernel_limits():
+    """The bf16 conv's plan for every GN+conv shape of the full-width paths:
+    tiles the kernel has (128 pixels of power-of-two rows, TMA boxes of at
+    most 256, an instantiated N width), K splits of 1 .. K steps in
+    balanced ranges, shared memory within the 227 KB a block may use, and at
+    least one block per SM where M <= 640 pixels."""
+    shapes = _full_width_gn_conv_shapes()
+    assert (2, 10, 8, 2560, 1280) in shapes and (1, 640, 512, 256, 128) \
+        in shapes and (2, 80, 64, 960, 320) in shapes
+    for b, h, w, cin, co in shapes:
+        p = fgc.conv_plan(b, h, w, cin, co)
+        what = (b, h, w, cin, co, p)
+        assert p.tw * p.th == fgc.BLOCK_PIXELS and p.tw & (p.tw - 1) == 0, \
+            what
+        assert max(p.tw, p.th, p.bn) <= 256 and p.bn in fgc.STAGES, what
+        assert fgc.conv_smem_bytes(p.bn) <= fgc.SMEM_LIMIT, what
+        assert p.ksteps == 9 * -(-cin // fgc.K_STEP_CHANNELS), what
+        assert 1 <= p.splits <= min(p.ksteps, fgc.MAX_SPLITS), what
+        steps = [(s + 1) * p.ksteps // p.splits - s * p.ksteps // p.splits
+                 for s in range(p.splits)]
+        assert sum(steps) == p.ksteps and max(steps) - min(steps) <= 1, what
+        assert p.mtiles == b * -(-h // p.th) * -(-w // p.tw), what
+        assert p.ntiles * p.bn >= co > (p.ntiles - 1) * p.bn, what
+        if b * h * w <= 640:
+            assert p.blocks >= fgc.SMS, what
 
 
 # ---------------------------------------------------------------------------
