@@ -6,13 +6,13 @@ Phases, each printing one line:
   2. build: the CUDA kernels, compiled from `imagdressing_tpu_torch/kernels/
      csrc` with one nvcc per source, all at once;
   3. check: every kernel against its plain PyTorch version on the card, in
-     bf16 and fp32, at the main paths' shapes: the inference kernels, the
-     training forward with residuals and both backward kernels (with K6b's
-     D_i, and at ragged lengths), the GN+conv at the deep UNet levels (split
-     K) and at a ragged shape, and the gradients of the GN+conv and
-     GroupNorm autograd Functions; then determinism: the backward pair and
-     the GN+conv (split K and not) twice on the same inputs must give
-     bit-identical results;
+     bf16 and fp32, at the main paths' shapes: the inference kernels (K1
+     also at ragged lengths), the training forward with residuals and both
+     backward kernels (with K6b's D_i, and at ragged lengths), the GN+conv
+     at the deep UNet levels (split K) and at a ragged shape, and the
+     gradients of the GN+conv and GroupNorm autograd Functions; then
+     determinism: K1, K5, the backward pair and the GN+conv (split K and
+     not) twice on the same inputs must give bit-identical results;
   4. mini: a small fp32 stack run end to end on the card and on the CPU (the
      CPU runs every kernel's plain version): the outputs must agree;
   5. mini_train: two training steps of the same small stack on the card and
@@ -23,10 +23,13 @@ Phases, each printing one line:
      (bytes, tensor-core FLOPs, and for the flash kernels exp2 per (q, k)
      pair); the backward pair's time beside its function's bound; the
      GN+conv also at the deep UNet shapes where its time goes, with its
-     normalize pass timed alone and the plan (tiles, K splits) of each;
+     normalize pass timed alone and the plan (tiles, K splits) of each; K1
+     at every level of the main path and at D = 512, K5 at every training
+     level (CUDA-graph replays, eager times beside);
   7. main: the `basic` preset through DressingModels / DressingPipeline at
      full SD1.5 width, 512x640, bf16, 30 DDIM steps, with per-stage wall
-     times, peak memory, and each kernel's launches in that run;
+     times, peak memory, and each kernel's launches in that run (K1's and
+     K2's by shape);
   8. train: the training step (`train.step`) at full SD1.5 width, 512x640,
      batch 1, bf16 frozen models and fp32 master weights, block remat: one
      warm step, then TRAIN_STEPS timed steps with s/step, peak memory, the
@@ -122,22 +125,29 @@ def exp2_per_ms() -> float:
 # ---------------------------------------------------------------------------
 
 
-def flash_case(b, s, h, d, dual, dtype, seed):
+def flash_case(b, s, h, d, dual, dtype, seed, lengths=None, scale=None):
+    """K1 against its plain version; library: two SDPA calls and the scaled
+    sum. `lengths` (Sq, Skv, Sref) for ragged sequences, else all s;
+    `scale` the ref scales (default [0, 1] at batch 2, the CFG batch).
+    graph=True: the device time comes from CUDA-graph replays (eager times
+    beside it); the plain version stays eager (tens of ms, device-bound)."""
     import torch
 
     from imagdressing_tpu_torch.kernels import flash_attention as fa
 
+    sq, skv, sref = lengths or (s, s, s)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    t = [torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
-         for _ in range(5 if dual else 3)]
+    t = [torch.randn((b, n, h, d), generator=gen, device="cuda").to(dtype)
+         for n in (sq, skv, skv) + ((sref, sref) if dual else ())]
     args = tuple(t)
     if dual:
-        args += (torch.tensor([0.0, 1.0][:b] if b == 2 else [1.0] * b,
-                              device="cuda"),)
-    # 4*S*S*D flops and S*S exp2 per (b, h) and source; rows with scale 0
-    # skip the ref pass
-    sources = b + (int((args[-1] != 0).sum()) if dual else 0)
-    flops = 4.0 * sources * h * s * s * d
+        if scale is None:
+            scale = [0.0, 1.0] if b == 2 else [1.0] * b
+        args += (torch.tensor(scale, device="cuda"),)
+    # 4*Sq*Skv*D flops and Sq*Skv exp2 per (b, h) and source; rows with
+    # scale 0 skip the ref pass
+    dual_rows = int((args[-1] != 0).sum()) if dual else 0
+    flops = 4.0 * h * sq * d * (b * skv + dual_rows * sref)
     nbytes = sum(x.numel() * x.element_size() for x in t) \
         + t[0].numel() * t[0].element_size()
 
@@ -152,8 +162,9 @@ def flash_case(b, s, h, d, dual, dtype, seed):
 
     return dict(kernel=lambda: fa.flash_attention(*args),
                 plain=lambda: fa.flash_attention_plain(*args),
-                library=library, flops=flops, bytes=nbytes,
-                exp2=float(sources * h * s * s))
+                library=library, flops=flops, bytes=nbytes, graph=True,
+                plain_eager=True,
+                exp2=float(h * sq * (b * skv + dual_rows * sref)))
 
 
 def gn_conv_case(b, h, w, cin, co, with_add, dtype, seed, groups=32):
@@ -292,7 +303,8 @@ def _flash_train_flops(b, s, h, d, dual, products):
 
 def flash_res_case(b, s, h, d, dual, scale, dtype, seed):
     """K5: (out, lse, o2) against the plain version; library: two SDPA
-    forwards and the scaled sum."""
+    forwards and the scaled sum. Timed as K1 is (graph replays, the plain
+    version eager)."""
     import torch
 
     from imagdressing_tpu_torch.kernels import flash_attention as fa
@@ -315,7 +327,8 @@ def flash_res_case(b, s, h, d, dual, scale, dtype, seed):
 
     return dict(kernel=lambda: fa.flash_attention_res(*args),
                 plain=lambda: fa.flash_attention_res_plain(*args),
-                library=library, outputs=("out", "lse", "o2"),
+                library=library, outputs=("out", "lse", "o2"), graph=True,
+                plain_eager=True,
                 flops=_flash_train_flops(b, s, h, d, dual, 2),
                 bytes=nbytes, exp2=float(b * h * s * s * (2 if dual else 1)))
 
@@ -479,6 +492,14 @@ def check_cases():
                                                           else ""),
                       lambda dt, sd, a=(b, s, h, d, dual):
                       flash_case(*a, dt, sd)))
+    # K1 at ragged lengths (Sq, Skv, Sref): zero-filled tails of the q and
+    # key tiles and of the D padding at D = 40, masked keys, scale [0, 0.7]
+    for (sq, skv, sref), d in [((100, 100, 37), 40), ((80, 77, 130), 40),
+                               ((100, 100, 37), 160), ((80, 77, 130), 160)]:
+        cases.append(("flash_fwd", f"2x{sq}/{skv}/{sref}x2x{d}dual[0,0.7]",
+                      lambda dt, sd, a=(sq, skv, sref), d=d:
+                      flash_case(2, a[0], 2, d, True, dt, sd, lengths=a,
+                                 scale=[0.0, 0.7])))
     # K2 / K4: the timed shape, the deep UNet levels where its time goes
     # (split K; batch 1 for the garment UNet and training), a concat input,
     # the VAE's pixel levels, and a ragged shape whose H, W, Cin and Cout
@@ -543,6 +564,9 @@ OUTPUT_KERNEL = {("flash_bwd", "dq"): "flash_bwd_dq",
                  ("flash_bwd", "dv_ref"): "flash_bwd_dkv"}
 
 
+# K1 is also timed at every level of the main path and at D = 512
+K1_TIMED = ["2x5120x8x40dual", "2x1280x8x80dual", "2x320x8x160dual",
+            "2x80x8x160dual", "1x5120x1x512"]
 # the shape each kernel is timed at (the first check case of that name)
 TIMED = {"flash_fwd": "2x5120x8x40dual",
          "gn_silu_conv3x3": "2x80x64x320->320+add",
@@ -605,10 +629,10 @@ def phase_check():
 
 
 def phase_determinism():
-    """K6b + K6a twice on the same inputs at the main shape: bit-identical
-    gradients and D_i (no atomics, a fixed summation order); K2 twice at a
-    split-K shape and at its timed shape (the split partials added in a
-    fixed order)."""
+    """K1 and K5, then K6b + K6a, twice on the same inputs at the main
+    shapes: bit-identical outputs, lse, O2, gradients and D_i (no atomics, a
+    fixed summation order); K2 twice at a split-K shape and at its timed
+    shape (the split partials added in a fixed order)."""
     import torch
 
     for shape in [(2, 10, 8, 1280, 1280, True), (2, 80, 64, 320, 320, True)]:
@@ -622,6 +646,27 @@ def phase_determinism():
              bit_equal={"out": same}, ok=same)
         if not same:
             raise SmokeFailure(f"K2 repeat not bit-identical at {shape}")
+        del case, first, second
+
+    for name, case in (
+            ("flash_fwd", flash_case(2, 5120, 8, 40, True, torch.bfloat16,
+                                     9)),
+            ("flash_fwd_res", flash_res_case(1, 5120, 8, 40, True, [1.0],
+                                             torch.bfloat16, 9))):
+        first = case["kernel"]()
+        second = case["kernel"]()
+        torch.cuda.synchronize()
+        outs = case.get("outputs", ("out",))
+        if len(outs) == 1:
+            first, second = (first,), (second,)
+        same = {out: bool(torch.equal(a, b)) for out, a, b in
+                zip(outs, first, second) if a is not None}
+        label = "2x5120x8x40dual" if name == "flash_fwd" \
+            else "1x5120x8x40dual"
+        emit("determinism", kernel=name, shape=label, dtype="bf16",
+             bit_equal=same, ok=all(same.values()))
+        if not all(same.values()):
+            raise SmokeFailure(f"{name} repeat not bit-identical: {same}")
         del case, first, second
 
     case = flash_bwd_case(1, 5120, 8, 40, True, [1.0], torch.bfloat16, 7)
@@ -664,8 +709,10 @@ def phase_time():
         if case.get("graph"):
             extra = dict(eager_ms=ms, eager_plain_ms=plain_ms,
                          eager_library_ms=library_ms)
-            ms, plain_ms, library_ms = (cuda_graph_ms(case[k]) for k in
-                                        ("kernel", "plain", "library"))
+            ms, library_ms = (cuda_graph_ms(case[k])
+                              for k in ("kernel", "library"))
+            if not case.get("plain_eager"):
+                plain_ms = cuda_graph_ms(case["plain"])
         if "plan" in case:
             extra["plan"] = case["plan"]
         terms = {"bytes": case["bytes"] / HBM_BYTES_PER_S * 1e3,
@@ -690,6 +737,15 @@ def phase_time():
                for name, label in TIMED.items()}
     for label in K2_DEEP_TIMED:
         timed("gn_silu_conv3x3", label, "bf16")
+    # K1 at its other check shapes (every level of the main path, and the
+    # VAE's D = 512), K5 at the other training levels
+    for label in K1_TIMED:
+        if label != TIMED["flash_fwd"]:
+            timed("flash_fwd", label, "bf16")
+    for b, s_, h, d in TRAIN_FLASH_SHAPES:
+        label = f"{b}x{s_}x{h}x{d}dual"
+        if label != TIMED["flash_fwd_res"]:
+            timed("flash_fwd_res", label, "bf16")
     # the pair K6b + K6a in one call, beside the function's own bound: 5
     # products per (q, k) pair (dQ, dK, dV, S and dP once each) and one exp2
     case = by_label[("flash_bwd", "1x5120x8x40dual")](torch.bfloat16, 1000)
@@ -925,7 +981,7 @@ def phase_main(counters):
         raise SmokeFailure("image_scale=0 gave the same image as 1.0")
 
     lat_pixels = (h // 8) * (w // 8)
-    flash_n, _ = launches["flash_fwd"]
+    flash_n, flash_shapes = launches["flash_fwd"]
     conv_n, conv_shapes = launches["gn_silu_conv3x3"]
     pixel_n = sum(n for (_, hh, ww, _, _), n in conv_shapes.items()
                   if hh * ww > lat_pixels)
@@ -938,6 +994,8 @@ def phase_main(counters):
          first_call_s=first_s, total_s=total_s, stage_s=stages,
          peak_gib=peak / 2**30, launches=counts,
          conv_launches_by_shape={str(k): v for k, v in conv_shapes.items()},
+         flash_launches_by_shape={str(k): v
+                                  for k, v in flash_shapes.items()},
          conv_plans_tw_th_bn_splits=plans)
     zero = [k for k, n in counts.items() if n == 0]
     if zero:

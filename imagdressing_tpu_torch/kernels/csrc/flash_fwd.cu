@@ -1,49 +1,81 @@
-// Inference flash attention over one or two KV sources:
+// Flash attention forward over one or two KV sources:
 //   out = SDPA(q, k, v) + s_b * SDPA(q, k_ref, v_ref)      (per batch b)
 // q/k/v (B, S, H, D) read by strides; a separate (k_ref, v_ref) pointer pair
-// replaces the concatenated KV axis of the Pallas kernel.
+// replaces the concatenated KV axis of the Pallas kernels.
 //
-// Replaces imagdressing_tpu/kernels/flash_attention.py:_flash_kernel (one
-// online softmax per source, fp32 accumulation, source-0 output stashed
-// before the reference pass, the whole reference pass skipped where
-// s_b == 0 -- the uncond half of the CFG batch -- and a single-source mode).
+// Replaces imagdressing_tpu/kernels/flash_attention.py:_flash_kernel (K1,
+// the inference forward: one online softmax per source, fp32 accumulation,
+// the whole reference pass skipped where s_b == 0 -- the uncond half of the
+// CFG batch -- and a single-source mode) and :_flash_res_kernel (K5, the
+// training forward, residual mode below).
 //
-// Bound on the H100: at the UNet's D = 40..160 the tensor-core work (4*S*S*D
-// flops per head and source) and the S*S exp2 evaluations on the SFU are
-// both far above the bytes moved (q, k, v, out read/written once), so it is
-// bound by operations; the score matrix never touches device memory.
+// Bound on the H100: the bytes (q, k, v, out once each) are far below the
+// operations. Per (q, k) pair and source run there is one exp2 on the
+// special-function units (16 per clock per SM) and 4 * D tensor-core FLOPs
+// (989 TFLOP/s dense bf16). At D = 40 the exp2 term is the larger (0.150
+// against 0.102 ms at (2,5120,8,40) dual with one skipped row); from D = 80
+// on the tensor work is. So the design keeps the exp2 of one tile running
+// while the tensor cores work on another.
 //
-// Design (bf16): a block owns one (b, h, 64-row q tile) and loops over every
-// KV tile of both sources itself (blocks run in parallel and in no order,
-// so this loop replaces the TPU's sequential kv grid axis). 4 warps, 16 q
-// rows each; per 64-key tile S = Q K^T and O += P V run on mma.sync
-// m16n8k16 (bf16 in, fp32 accumulate), P stays in registers between the two
-// products. The softmax is base 2 in fp32: logits are scaled by
-// (1/sqrt(D)) * log2(e) as one fp32 multiply on the fp32 scores (never
-// rounded to bf16, unlike the TPU kernel's fold of the scale into bf16 q).
-// D is padded to the 16-deep MMA step (40 -> 48) in shared memory only.
-// Ragged sequence edges are masked (zero rows, -1e30 scores), so every UNet
-// self-attention length (5120/1280/320/80) runs here. D = 512 (VAE mid, one
-// head) does not fit a 16-row fp32 accumulator in registers: the output is
-// produced in 128-column chunks, each re-running QK^T (4x the QK work on a
-// once-per-image call). Source 0's normalized output is stashed per thread
-// in shared memory while the reference source runs; a skipped source leaves
-// exactly o0 (no 0/0).
+// Design (bf16, sm_90a):
+//  * A block is one producer warp and two consumer warpgroups (one for
+//    64-row blocks), each consumer owning 64 query rows of one (b, h). One
+//    producer thread loads the q tile once and streams the key / value
+//    tiles of both sources through a ring of stages in shared memory, each
+//    stage with a "full" mbarrier (the tensor unit's byte count) and an
+//    "empty" one (the consumers' release); it asks for a whole tile with one
+//    instruction, through a 5-D tensor map over the (B, S, H, D) strides.
+//    The unit zero-fills the rows past the sequence end and the columns of
+//    the D padding (40 -> 48 on the contraction). Every key tile serves all
+//    the block's q rows.
+//  * Products on wgmma m64nNk16: S = Q K^T with both operands in shared
+//    memory (N = BKV keys, chosen per shape by
+//    `kernels/flash_attention.py:flash_plan`); P is rounded to bf16 in
+//    registers as the A fragment of O += P V, whose B operand is the row-
+//    major V tile read MN-major (wgmma's transpose bit): no transposed copy.
+//  * Overlap: step t issues S(t) into a fresh accumulator, rescales O and
+//    issues O += P(t-1) V(t-1), then runs the softmax of S(t). The two
+//    consumer warpgroups take turns to issue (named barriers 1 and 2,
+//    PINGPONG), so one's softmax runs under the other's products. Within a
+//    warpgroup only the row max runs under PV(t-1): ptxas holds the exp2s,
+//    which write S's registers in place, until PV(t-1) has landed. No
+//    instruction but a wgmma defines an accumulator while a product is in
+//    flight: ptxas would otherwise serialize every wgmma of the kernel.
+//  * The softmax is base 2 in fp32: the running max is kept on the raw fp32
+//    scores and each probability is exp2(s * c - m * c), one FFMA into
+//    ex2.approx, c = log2(e) / sqrt(D) in fp32 (never folded into bf16 q,
+//    unlike the TPU kernel). The row sums are per-thread partials, reduced
+//    once per source.
+//  * Two sources: source 0's normalized output waits in registers (D <= 128)
+//    or in shared memory (wider) while the reference source runs. Where
+//    s_b == 0 the block never asks for a reference tile, and out is exactly
+//    o0 (no 0/0). The grid's batch rows with a reference pass start first,
+//    so the blocks of half the work (the CFG uncond half) fill the tail.
+//  * D = 512 (the VAE mid attention, one head, two launches per image): a
+//    block covers 256 output columns with 64 rows and 32-key tiles, and runs
+//    S over all 512; two blocks per q tile, so twice the QK work.
+//  * No atomics: every output element is written once by one thread, so
+//    repeats are bit-equal.
 //
-// The fp32 variant (parity mode) is a separate SIMT kernel: one warp per
-// query row, D spread over the lanes, the same base-2 online softmax.
+// Residual mode (RES, K5): the same kernel additionally writes each
+// source's base-2 log-sum-exp lse = m * c + log2(l) (layout (B, H,
+// n_sources, Sq), fp32) and, with two sources, O2 = the reference source's
+// normalized output (B, Sq, H, D) in bf16. It never skips the reference pass
+// of a scale-0 row: d out / d s = O2 must exist there. D <= 160 (the
+// backward's limit).
 //
-// Residual mode (RES, the training forward) replaces
-// imagdressing_tpu/kernels/flash_attention.py:_flash_res_kernel: the same
-// kernels additionally write each source's base-2 log-sum-exp
-// lse = m + log2(l) (m on the log2(e)/sqrt(D)-scaled fp32 scores; layout
-// (B, H, n_sources, Sq), fp32) and, with two sources, O2 = the reference
-// source's normalized output (B, Sq, H, D) in the input dtype. It never skips
-// the reference pass of a scale-0 row: d out / d s = O2 must exist there.
-// D <= 160 only (the backward's limit), so the output is never chunked.
+// The fp32 variants (parity mode) are a SIMT kernel: one warp per query
+// row, D spread over the lanes, the same base-2 online softmax.
 #include "common.cuh"
+#include "flash_tiles.cuh"
+#include "sm90.cuh"
+#include "wgmma.cuh"
 
-constexpr int BQ = 64, BKV = 64, NTH = 128;
+namespace {
+
+constexpr int NTH = 128;  // threads of a warpgroup, and of the other kernels
+// The two consumer warpgroups take turns to issue their products.
+constexpr bool PINGPONG = true;
 
 struct FlashArgs {
   const void* q;
@@ -56,208 +88,325 @@ struct FlashArgs {
   float* lse;  // residual mode: (B, H, n_sources, Sq) fp32, else null
   void* o2;    // residual mode with two sources: (B, Sq, H, D), else null
   int B, H, Sq, Skv, Skv_ref, D;
+  int stages;  // depth of the key / value ring (wgmma kernel)
   // element strides (batch, seq, head) of q, k, v, k_ref, v_ref, out, o2
   long long st[7][3];
   float scale_log2;  // log2(e) / sqrt(D), fp32
 };
 
-template <int DP, int DC, bool RES>
-__global__ void __launch_bounds__(NTH) flash_fwd_bf16(const FlashArgs a) {
-  static_assert(!RES || DP == DC, "residual mode does not chunk D");
-  constexpr int QS = DP + 8;   // padded smem row of Q and K (elements)
-  constexpr int VS = BKV + 8;  // padded smem row of V^T
-  constexpr int NO = DC / 8;   // n8 output tiles per chunk
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + BQ * QS;
-  bf16* Vt = Ks + BKV * QS;
-  float* O0 = reinterpret_cast<float*>(Vt + DC * VS);  // per-thread stash
+enum { Q_ = 0, K_, V_, KR_, VR_, OUT_, O2_ };
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int D = a.D;
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.st[0][0] + h * a.st[0][2];
-  bf16* ob = static_cast<bf16*>(a.out) + b * a.st[5][0] + h * a.st[5][2];
-  const float s_ref = a.kr != nullptr ? a.ref_scale[b] : 0.f;
-  const int nsrc_all = a.kr != nullptr ? 2 : 1;
-  const int nsrc = (RES || s_ref != 0.f) ? nsrc_all : 1;
+// Tensor maps of the tiled operands: q with boxes of the block's rows, the
+// key / value tiles with boxes of BKV rows; kr / vr unset with one source.
+struct FwdMaps {
+  CUtensorMap q, k, v, kr, vr;
+};
 
-  for (int idx = tid; idx < BQ * (DP / 8); idx += NTH) {
-    const int r = idx / (DP / 8), cv = (idx % (DP / 8)) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (q0 + r < a.Sq && cv < D)
-      val = *reinterpret_cast<const uint4*>(qb + (long long)(q0 + r) * a.st[0][1] + cv);
-    *reinterpret_cast<uint4*>(&Qs[r * QS + cv]) = val;
-  }
-
-  for (int c0 = 0; c0 < D; c0 += DC) {
-    for (int src = 0; src < nsrc; ++src) {
-      const int ik = src == 0 ? 1 : 3, iv = ik + 1;
-      const bf16* kb = static_cast<const bf16*>(src == 0 ? a.k : a.kr) +
-                       b * a.st[ik][0] + h * a.st[ik][2];
-      const bf16* vb = static_cast<const bf16*>(src == 0 ? a.v : a.vr) +
-                       b * a.st[iv][0] + h * a.st[iv][2];
-      const long long kss = a.st[ik][1], vss = a.st[iv][1];
-      const int Skv = src == 0 ? a.Skv : a.Skv_ref;
-
-      float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
-      float o[NO][4];
-#pragma unroll
-      for (int n = 0; n < NO; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-
-      for (int kv0 = 0; kv0 < Skv; kv0 += BKV) {
-        __syncthreads();  // Q staged / previous tile consumed
-        for (int idx = tid; idx < BKV * (DP / 8); idx += NTH) {
-          const int r = idx / (DP / 8), cv = (idx % (DP / 8)) * 8;
-          uint4 val = make_uint4(0, 0, 0, 0);
-          if (kv0 + r < Skv && cv < D)
-            val = *reinterpret_cast<const uint4*>(kb + (long long)(kv0 + r) * kss + cv);
-          *reinterpret_cast<uint4*>(&Ks[r * QS + cv]) = val;
-        }
-        for (int idx = tid; idx < BKV * (DC / 8); idx += NTH) {
-          const int r = idx / (DC / 8), cv = (idx % (DC / 8)) * 8;
-          uint4 val = make_uint4(0, 0, 0, 0);
-          if (kv0 + r < Skv && c0 + cv < D)
-            val = *reinterpret_cast<const uint4*>(vb + (long long)(kv0 + r) * vss + c0 + cv);
-          const bf16* e8 = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) Vt[(cv + i) * VS + r] = e8[i];
-        }
-        __syncthreads();
-
-        // S = Q K^T for this warp's 16 rows x 64 keys
-        float s[8][4];
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll 2
-        for (int kk = 0; kk < DP; kk += 16) {
-          uint32_t af[4];
-          const bf16* a0 = Qs + (warp * 16 + g) * QS + kk + t * 2;
-          af[0] = lds32(a0);
-          af[1] = lds32(a0 + 8 * QS);
-          af[2] = lds32(a0 + 8);
-          af[3] = lds32(a0 + 8 * QS + 8);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            uint32_t bfr[2];
-            const bf16* b0 = Ks + (j * 8 + g) * QS + kk + t * 2;
-            bfr[0] = lds32(b0);
-            bfr[1] = lds32(b0 + 8);
-            mma_bf16_16816(s[j], af, bfr);
-          }
-        }
-
-        // base-2 online softmax; rows g (e = 0, 1) and g + 8 (e = 2, 3)
-        float rm0 = -1e30f, rm1 = -1e30f;
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = kv0 + j * 8 + t * 2 + (e & 1);
-            float v = s[j][e] * a.scale_log2;
-            if (col >= Skv) v = -1e30f;
-            s[j][e] = v;
-            if (e < 2) rm0 = fmaxf(rm0, v); else rm1 = fmaxf(rm1, v);
-          }
-#pragma unroll
-        for (int off = 1; off < 4; off <<= 1) {
-          rm0 = fmaxf(rm0, __shfl_xor_sync(0xffffffffu, rm0, off));
-          rm1 = fmaxf(rm1, __shfl_xor_sync(0xffffffffu, rm1, off));
-        }
-        const float mn0 = fmaxf(m[0], rm0), mn1 = fmaxf(m[1], rm1);
-        const float corr0 = exp2f(m[0] - mn0), corr1 = exp2f(m[1] - mn1);
-        float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          s[j][0] = exp2f(s[j][0] - mn0);
-          s[j][1] = exp2f(s[j][1] - mn0);
-          s[j][2] = exp2f(s[j][2] - mn1);
-          s[j][3] = exp2f(s[j][3] - mn1);
-          ls0 += s[j][0] + s[j][1];
-          ls1 += s[j][2] + s[j][3];
-        }
-#pragma unroll
-        for (int off = 1; off < 4; off <<= 1) {
-          ls0 += __shfl_xor_sync(0xffffffffu, ls0, off);
-          ls1 += __shfl_xor_sync(0xffffffffu, ls1, off);
-        }
-        l[0] = l[0] * corr0 + ls0;
-        l[1] = l[1] * corr1 + ls1;
-        m[0] = mn0;
-        m[1] = mn1;
-#pragma unroll
-        for (int n = 0; n < NO; ++n) {
-          o[n][0] *= corr0;
-          o[n][1] *= corr0;
-          o[n][2] *= corr1;
-          o[n][3] *= corr1;
-        }
-
-        // O += P V, P re-packed from the score fragments as the A operand
-#pragma unroll
-        for (int kk = 0; kk < BKV / 16; ++kk) {
-          uint32_t pa[4];
-          pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-          pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-          pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-          pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-          for (int n = 0; n < NO; ++n) {
-            uint32_t bfr[2];
-            const bf16* b0 = Vt + (n * 8 + g) * VS + kk * 16 + t * 2;
-            bfr[0] = lds32(b0);
-            bfr[1] = lds32(b0 + 8);
-            mma_bf16_16816(o[n], pa, bfr);
-          }
-        }
-      }
-
-      const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
-      const float w = src == 0 ? 1.f : s_ref;
-      if (RES) {
-        const int r0 = q0 + warp * 16 + g;
-        float* lb = a.lse + ((long long)(b * a.H + h) * nsrc_all + src) * a.Sq;
-        if (t == 0 && r0 < a.Sq) lb[r0] = m[0] + log2f(l[0]);
-        if (t == 0 && r0 + 8 < a.Sq) lb[r0 + 8] = m[1] + log2f(l[1]);
-      }
-#pragma unroll
-      for (int n = 0; n < NO; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float val;
-          if (RES) {
-            const float on = o[n][e] * (e < 2 ? inv0 : inv1);
-            const int row = q0 + warp * 16 + g + (e >= 2 ? 8 : 0);
-            const int col = n * 8 + t * 2 + (e & 1);
-            if (src == 1 && row < a.Sq && col < D)
-              static_cast<bf16*>(a.o2)[b * a.st[6][0] + (long long)row * a.st[6][1] +
-                                       h * a.st[6][2] + col] = __float2bfloat16_rn(on);
-            val = w * on;
-          } else {
-            val = w * o[n][e] * (e < 2 ? inv0 : inv1);
-          }
-          float* slot = &O0[(n * 4 + e) * NTH + tid];
-          *slot = src == 0 ? val : *slot + val;
-        }
-    }
-
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = q0 + warp * 16 + g + (e >= 2 ? 8 : 0);
-        const int col = c0 + n * 8 + t * 2 + (e & 1);
-        if (row < a.Sq && col < D)
-          ob[(long long)row * a.st[5][1] + col] =
-              __float2bfloat16_rn(O0[(n * 4 + e) * NTH + tid]);
-      }
-  }
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The batch row of grid row z: with a skip, the rows with a reference pass
+// (s_b != 0) first, each group in batch order.
+__device__ int batch_of(const FlashArgs& a, int z, bool skip) {
+  if (!skip) return z;
+  int dual = 0;
+  for (int i = 0; i < a.B; ++i) dual += a.ref_scale[i] != 0.f;
+  const bool want = z < dual;
+  int k = want ? z : z - dual;
+  for (int i = 0; i < a.B; ++i)
+    if ((a.ref_scale[i] != 0.f) == want && k-- == 0) return i;
+  return z;
+}
+
+__device__ __forceinline__ bf16* elem(const FlashArgs& a, void* base, int idx, int b, int row,
+                                      int h) {
+  return static_cast<bf16*>(base) + b * a.st[idx][0] + (long long)row * a.st[idx][1] +
+         h * a.st[idx][2];
+}
+
+__host__ __device__ constexpr int contraction(int dn) { return (dn + 15) / 16 * 16; }
+
+// Shared memory of the wgmma kernel (kernels/flash_attention.py:fwd_smem
+// computes the same): the q tile, the ring of key (DK columns) and value (DN
+// columns) tiles, source 0's output where it does not stay in registers
+// (two sources, DN > 128), the barriers.
+__host__ __device__ constexpr size_t fwd_smem(int dn, int dk, int bkv, int wgs, int stages,
+                                              bool dual) {
+  return (size_t)(64 * wgs * dk + stages * bkv * (dk + dn)) * 2 +
+         (dual && dn > 128 ? (size_t)64 * wgs * dn * 4 : 0) + (size_t)(2 * stages + 1) * 8;
+}
+
+// ---------------------------------------------------------------------------
+// K1 and K5, bf16: one q tile of 64 * WGS rows over both sources
+// ---------------------------------------------------------------------------
+//
+// DN output columns per block (from col0), DK the contraction (D padded):
+// at D <= 160 one block covers every column (DK = D padded to 16); at D = 512
+// two blocks of 256 columns each run S = Q K^T over all 512 (twice the QK
+// work, not the four times of 128-column chunks). Key tile t (the source-0
+// tiles, then the reference ones) lands in stage t % stages. Warpgroups 0
+// .. WGS-1 consume, the warp after them produces.
+
+template <int DN, int DK, int BKV, int WGS, bool RES>
+__global__ void __launch_bounds__(NTH * WGS + 32, 1)
+    flash_fwd_wgmma(const FlashArgs a, const __grid_constant__ FwdMaps mp) {
+  constexpr int NC = NTH * WGS;   // consumer threads
+  constexpr int BQ = 64 * WGS;    // q rows of the block
+  constexpr int QT = BQ * DK;     // elements of the q tile
+  constexpr int KTILE = BKV * DK;  // elements of a key tile
+  constexpr int VTILE = BKV * DN;  // elements of a value tile (the block's columns)
+  constexpr int NS = BKV / 2;     // score floats of a thread
+  constexpr int NO = DN / 2;      // output floats of a thread
+  constexpr bool SMEM_O0 = DN > 128;
+  const int stages = a.stages;
+  const bool dual = a.kr != nullptr;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + QT;               // [stages]
+  bf16* Vs = Ks + stages * KTILE;   // [stages]
+  float* O0s = reinterpret_cast<float*>(Vs + stages * VTILE);  // [NO][NC] (SMEM_O0, dual)
+  uint64_t* full = reinterpret_cast<uint64_t*>(O0s + (SMEM_O0 && dual ? NO * NC : 0));
+  uint64_t* empty = full + stages;
+  uint64_t* qbar = empty + stages;
+
+  const int tid = threadIdx.x;
+  const int b = batch_of(a, blockIdx.z, dual && !RES);
+  const int ncb = (a.D + DN - 1) / DN;  // column blocks per q tile
+  const int q0 = (blockIdx.x / ncb) * BQ, col0 = (blockIdx.x % ncb) * DN, h = blockIdx.y;
+  const float s_b = dual ? a.ref_scale[b] : 0.f;
+  const int n0 = (a.Skv + BKV - 1) / BKV;
+  const int nt = n0 + (dual && (RES || s_b != 0.f) ? (a.Skv_ref + BKV - 1) / BKV : 0);
+
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(&full[i]);
+      mbar_init(&empty[i], WGS);  // one arrival per consumer warpgroup
+    }
+    mbar_init(qbar);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= NC) {  // the producer warp: one thread asks for every tile
+    if (tid == NC) {
+      mbar_expect(qbar, QT * 2);
+      tma_tile(Qs, &mp.q, h, q0, b, qbar);
+      for (int t = 0, st = 0, ph = 0; t < nt; ++t) {  // tile t in stage st, phase ph
+        const int src = t >= n0 ? 1 : 0;
+        const int kv0 = (t - src * n0) * BKV;
+        if (t >= stages) mbar_wait(&empty[st], ph ^ 1);
+        mbar_expect(&full[st], 2 * (KTILE + VTILE));
+        tma_tile(Ks + st * KTILE, src ? &mp.kr : &mp.k, h, kv0, b, &full[st]);
+        tma_tile(Vs + st * VTILE, src ? &mp.vr : &mp.v, h, kv0, b, &full[st], col0 / 8);
+        if (++st == stages) st = 0, ph ^= 1;
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: rows q0 + 64 wg .., this thread's r0 and r1
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int r0 = q0 + 64 * wg + 16 * warp + (lane >> 2), r1 = r0 + 8;
+  const float c = a.scale_log2;
+  const bf16* Qw = Qs + tile_at<BQ>(64 * wg, 0);
+  constexpr bool PP = PINGPONG && WGS == 2;
+
+  // o: the output, rescaled while S(t) is in flight; pf: P of the tile
+  // whose O += P V comes next, bf16 A fragments (packed once that product's
+  // predecessor has landed)
+  float o[NO], o0[SMEM_O0 ? 1 : NO];
+  uint32_t pf[BKV / 16][4];
+  float m0 = -1e30f, m1 = -1e30f, l0 = 0.f, l1 = 0.f;  // m on the raw scores
+  float corr0 = 1.f, corr1 = 1.f;  // o's rescale before the next O += P V
+#pragma unroll
+  for (int j = 0; j < NO; ++j) o[j] = 0.f;
+
+  // S = Q K^T of the key tile in stage st (this warpgroup's 64 rows) into a fresh
+  // accumulator, one group (an accumulator that another instruction defines
+  // while a product is in flight makes ptxas serialize every wgmma)
+  auto issue_s = [&](float (&s)[NS], int st) {
+    const bf16* Kt = Ks + st * KTILE;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DK / 16; ++kk)
+      Wgmma<BKV>::template ss<0, 0>(s, desc_kmajor<BQ>(Qw, kk), desc_kmajor<BKV>(Kt, kk), kk);
+    wgmma_commit();
+  };
+  // O += P V of the value tile in stage st, P from pf, V read MN-major;
+  // one group
+  auto issue_pv = [&](int st) {
+    const bf16* Vt = Vs + st * VTILE;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      Wgmma<DN>::template rs<1>(o, pf[kk], desc_mnmajor<BKV>(Vt, kk), 1);
+    wgmma_commit();
+  };
+
+  // The online softmax of S(t) in place (rows r0: j % 4 < 2, and r1), keys
+  // past the end at -1e30: the running max and sums, o's next rescale, and
+  // P in s
+  auto softmax = [&](float (&s)[NS], int t) {
+    const int src = t >= n0 ? 1 : 0;
+    const int kv0 = (t - src * n0) * BKV, Skv = src ? a.Skv_ref : a.Skv;
+    if (kv0 + BKV > Skv) {  // the last tile of a source
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+        if (kv0 + acc_col(j, lane) >= Skv) s[j] = -1e30f;
+    }
+    // (softmax begins)
+    // the row max and sums in 8 independent chains (element j in chain j % 8:
+    // chains 0, 1, 4, 5 hold row r0), so that two warps per scheduler keep
+    // the pipes busy
+    float xm[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) xm[i] = (i & 2) ? m1 : m0;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) xm[j & 7] = fmaxf(xm[j & 7], s[j]);
+    float x0 = fmaxf(fmaxf(xm[0], xm[1]), fmaxf(xm[4], xm[5]));
+    float x1 = fmaxf(fmaxf(xm[2], xm[3]), fmaxf(xm[6], xm[7]));
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, off));
+      x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, off));
+    }
+    corr0 = fast_exp2((m0 - x0) * c);
+    corr1 = fast_exp2((m1 - x1) * c);
+    const float mc0 = x0 * c, mc1 = x1 * c;
+    m0 = x0;
+    m1 = x1;
+    float ls[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      s[j] = fast_exp2(fmaf(s[j], c, (j & 2) ? -mc1 : -mc0));
+      ls[j & 7] += s[j];
+    }
+    l0 = l0 * corr0 + ((ls[0] + ls[1]) + (ls[4] + ls[5]));
+    l1 = l1 * corr1 + ((ls[2] + ls[3]) + (ls[6] + ls[7]));
+    // (softmax ends)
+  };
+
+  // The end of source src: o / l, then either kept for the reference source
+  // (`keep`), or written as out (the sum with the kept source 0 where src is
+  // 1), with the lse and O2 in residual mode.
+  auto finish = [&](int src, bool keep, float fm0, float fm1, float fl0, float fl1) {
+    float lt0 = fl0, lt1 = fl1;
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      lt0 += __shfl_xor_sync(0xffffffffu, lt0, off);
+      lt1 += __shfl_xor_sync(0xffffffffu, lt1, off);
+    }
+    if (RES && (lane & 3) == 0) {
+      float* lb = a.lse + ((long long)(b * a.H + h) * (dual ? 2 : 1) + src) * a.Sq;
+      if (r0 < a.Sq) lb[r0] = fm0 * c + log2f(lt0);
+      if (r1 < a.Sq) lb[r1] = fm1 * c + log2f(lt1);
+    }
+#pragma unroll
+    for (int j = 0; j < NO; ++j) o[j] = __fdiv_rn(o[j], (j & 2) ? lt1 : lt0);
+    if (keep) {
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        if constexpr (SMEM_O0) O0s[j * NC + tid] = o[j];
+        else o0[j] = o[j];
+      }
+      return;
+    }
+#pragma unroll
+    for (int j = 0; j < NO; j += 2) {
+      const int row = (j & 2) ? r1 : r0, col = col0 + acc_col(j, lane);
+      if (row >= a.Sq || col >= a.D) continue;
+      float y0 = o[j], y1 = o[j + 1];
+      if (src == 1) {
+        if (RES)
+          *reinterpret_cast<__nv_bfloat162*>(elem(a, a.o2, O2_, b, row, h) + col) =
+              __floats2bfloat162_rn(y0, y1);
+        float x0, x1;
+        if constexpr (SMEM_O0) {
+          x0 = O0s[j * NC + tid];
+          x1 = O0s[(j + 1) * NC + tid];
+        } else {
+          x0 = o0[j];
+          x1 = o0[j + 1];
+        }
+        // the plain version's order: o0 + (s_b * o1), two roundings
+        y0 = __fadd_rn(x0, __fmul_rn(s_b, y0));
+        y1 = __fadd_rn(x1, __fmul_rn(s_b, y1));
+      }
+      *reinterpret_cast<__nv_bfloat162*>(elem(a, a.out, OUT_, b, row, h) + col) =
+          __floats2bfloat162_rn(y0, y1);
+    }
+  };
+
+  // Step t: S(t) is issued, o rescaled, PV(t-1) issued, then the softmax
+  // of S(t). With two warpgroups they take turns to issue (PP), so one's
+  // softmax runs under the other's products.
+  mbar_wait(qbar, 0);
+  if (PP && wg == 1) named_arrive(1, NC);  // warpgroup 0 issues first
+  {
+    float s[NS];
+    mbar_wait(&full[0], 0);
+    if (PP) named_sync(1 + wg, NC);
+    issue_s(s, 0);
+    if (PP) named_arrive(2 - wg, NC);
+    wgmma_wait<0>();
+    fence_regs(s);
+    softmax(s, 0);
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) a_frag(pf[kk], s, kk);
+  }
+  float sm0 = 0.f, sm1 = 0.f, sl0 = 0.f, sl1 = 0.f;  // source 0's m and l
+  int pst = 0, st = 0, ph = 0;  // the stages of tiles t - 1 and t, t's phase
+  for (int t = 1; t < nt; ++t) {
+    pst = st;
+    if (++st == stages) st = 0, ph ^= 1;
+    if (t == n0) {  // the reference source starts from scratch
+      sm0 = m0;
+      sm1 = m1;
+      sl0 = l0;
+      sl1 = l1;
+      m0 = m1 = -1e30f;
+      l0 = l1 = 0.f;
+    }
+    float s[NS];
+    mbar_wait(&full[st], ph);
+    if (PP) named_sync(1 + wg, NC);
+    issue_s(s, st);
+#pragma unroll
+    for (int j = 0; j < NO; ++j) o[j] *= (j & 2) ? corr1 : corr0;
+    issue_pv(pst);
+    if (PP) named_arrive(2 - wg, NC);
+    wgmma_wait<1>();  // S(t) has landed; PV(t-1) may still run
+    fence_regs(s);
+    softmax(s, t);
+    wgmma_wait<0>();  // PV(t-1) has landed: o, pf and its stage are free
+    fence_regs(o);
+    if ((tid & 127) == 0) mbar_arrive(&empty[pst]);
+    if (t == n0) {  // source 0 is complete
+      finish(0, true, sm0, sm1, sl0, sl1);
+#pragma unroll
+      for (int j = 0; j < NO; ++j) o[j] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) a_frag(pf[kk], s, kk);
+  }
+  if (PP) named_sync(1 + wg, NC);
+#pragma unroll
+  for (int j = 0; j < NO; ++j) o[j] *= (j & 2) ? corr1 : corr0;
+  issue_pv(st);
+  if (PP) named_arrive(2 - wg, NC);
+  wgmma_wait<0>();
+  fence_regs(o);
+  finish(nt > n0 ? 1 : 0, false, m0, m1, l0, l1);
+  if (PP && wg == 0) named_sync(1, NC);  // the last turn warpgroup 1 handed over
+}
+
+// ---------------------------------------------------------------------------
+// fp32 (parity mode): SIMT, a warp per query row, D over the lanes
+// ---------------------------------------------------------------------------
 
 template <int DPL, bool RES>
 __global__ void __launch_bounds__(NTH) flash_fwd_f32(const FlashArgs a) {
@@ -338,68 +487,111 @@ __global__ void __launch_bounds__(NTH) flash_fwd_f32(const FlashArgs a) {
   }
 }
 
-template <int DP, int DC, bool RES>
-static int launch_bf16(const FlashArgs& a, cudaStream_t st) {
-  const size_t smem = (size_t)(BQ * (DP + 8) + BKV * (DP + 8) + DC * (BKV + 8)) * 2 +
-                      (size_t)NTH * (DC / 2) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16<DP, DC, RES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+// ---------------------------------------------------------------------------
+// Launchers
+// ---------------------------------------------------------------------------
+
+template <int DN, int DK, int BKV, int WGS, bool RES>
+int launch_wgmma(const FlashArgs& a, cudaStream_t st) {
+  const bool dual = a.kr != nullptr;
+  const size_t smem = fwd_smem(DN, DK, BKV, WGS, a.stages, dual);
+  FwdMaps m;
+  bool ok = make_bshd_map(&m.q, a.q, a.st[Q_], a.B, a.Sq, a.H, a.D, 64 * WGS, DK / 8) &&
+            make_bshd_map(&m.k, a.k, a.st[K_], a.B, a.Skv, a.H, a.D, BKV, DK / 8) &&
+            make_bshd_map(&m.v, a.v, a.st[V_], a.B, a.Skv, a.H, a.D, BKV, DN / 8);
+  if (ok && dual)
+    ok = make_bshd_map(&m.kr, a.kr, a.st[KR_], a.B, a.Skv_ref, a.H, a.D, BKV, DK / 8) &&
+         make_bshd_map(&m.vr, a.vr, a.st[VR_], a.B, a.Skv_ref, a.H, a.D, BKV, DN / 8);
+  if (!ok || a.stages < 2) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma<DN, DK, BKV, WGS, RES>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
-  flash_fwd_bf16<DP, DC, RES><<<grid, NTH, smem, st>>>(a);
+  const int blocks = (a.Sq + 64 * WGS - 1) / (64 * WGS) * ((a.D + DN - 1) / DN);
+  flash_fwd_wgmma<DN, DK, BKV, WGS, RES>
+      <<<dim3(blocks, a.H, a.B), NTH * WGS + 32, smem, st>>>(a, m);
   return (int)cudaGetLastError();
 }
 
+// The plan's rows per block (64 * WGS) and keys per tile; 128-key tiles up
+// to D = 80 only (registers).
+template <int DN, bool RES>
+int by_tiles(const FlashArgs& a, int rows, int bkv, cudaStream_t st) {
+  constexpr int DK = contraction(DN);
+  if (bkv == 64 && rows == 128) return launch_wgmma<DN, DK, 64, 2, RES>(a, st);
+  if (bkv == 64 && rows == 64) return launch_wgmma<DN, DK, 64, 1, RES>(a, st);
+  if constexpr (DN <= 80) {
+    if (bkv == 128 && rows == 128) return launch_wgmma<DN, DK, 128, 2, RES>(a, st);
+    if (bkv == 128 && rows == 64) return launch_wgmma<DN, DK, 128, 1, RES>(a, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The N width of O += P V: the smallest instantiated width >= D (the
+// columns past D read the zero-filled padding chunks and are not stored);
+// above D = 160 (K1 only) blocks of 256 columns over a 512-wide contraction,
+// 64 rows and 32-key tiles.
+template <bool RES>
+int by_width(const FlashArgs& a, int rows, int bkv, cudaStream_t st) {
+  if (a.D <= 16) return by_tiles<16, RES>(a, rows, bkv, st);
+  if (a.D <= 32) return by_tiles<32, RES>(a, rows, bkv, st);
+  if (a.D <= 40) return by_tiles<40, RES>(a, rows, bkv, st);
+  if (a.D <= 64) return by_tiles<64, RES>(a, rows, bkv, st);
+  if (a.D <= 80) return by_tiles<80, RES>(a, rows, bkv, st);
+  if (a.D <= 128) return by_tiles<128, RES>(a, rows, bkv, st);
+  if (a.D <= 160) return by_tiles<160, RES>(a, rows, bkv, st);
+  if constexpr (!RES) {
+    if (a.D <= 512 && rows == 64 && bkv == 32) return launch_wgmma<256, 512, 32, 1, false>(a, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 template <int DPL, bool RES>
-static int launch_f32(const FlashArgs& a, cudaStream_t st) {
+int launch_f32(const FlashArgs& a, cudaStream_t st) {
   dim3 grid((a.Sq + NTH / 32 - 1) / (NTH / 32), a.H, a.B);
   flash_fwd_f32<DPL, RES><<<grid, NTH, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-static FlashArgs make_args(const void* q, const void* k, const void* v,
-                           const void* kr, const void* vr,
-                           const float* ref_scale, void* out, float* lse,
-                           void* o2, int B, int H, int Sq, int Skv,
-                           int Skv_ref, int D, const long long* strides,
-                           int n_strided, float scale_log2) {
+FlashArgs make_args(const void* q, const void* k, const void* v, const void* kr,
+                    const void* vr, const float* ref_scale, void* out, float* lse, void* o2,
+                    int B, int H, int Sq, int Skv, int Skv_ref, int D, const long long* strides,
+                    int n_strided, float scale_log2, int stages) {
   FlashArgs a;
   a.q = q; a.k = k; a.v = v; a.kr = kr; a.vr = vr;
   a.ref_scale = ref_scale; a.out = out; a.lse = lse; a.o2 = o2;
   a.B = B; a.H = H; a.Sq = Sq; a.Skv = Skv; a.Skv_ref = Skv_ref; a.D = D;
+  a.stages = stages;
   for (int i = 0; i < 7; ++i)
     for (int j = 0; j < 3; ++j) a.st[i][j] = i < n_strided ? strides[i * 3 + j] : 0;
   a.scale_log2 = scale_log2;
   return a;
 }
 
+}  // namespace
+
+// q k v kr vr: device pointers (kr vr null with one source); ref_scale: the
+// (B,) fp32 vector or null; strides: (batch, seq, head) triples of q k v kr
+// vr out (and o2); plan: rows per block, keys per tile and ring depth of
+// the bf16 wgmma kernel (kernels/flash_attention.py:flash_plan), ignored
+// in fp32. Each returns a CUDA error code; 1 (cudaErrorInvalidValue) for an
+// unsupported D or plan.
 #define FLASH_ARGS                                                            \
   const void *q, const void *k, const void *v, const void *kr, const void *vr, \
       const float *ref_scale, void *out, int B, int H, int Sq, int Skv,        \
       int Skv_ref, int D, const long long *strides, float scale_log2,          \
-      void *stream
+      const int *plan, void *stream
 
-// Returns a CUDA error code; 1 (cudaErrorInvalidValue) for an unsupported D.
 extern "C" int flash_fwd_bf16_launch(FLASH_ARGS) {
-  const FlashArgs a = make_args(q, k, v, kr, vr, ref_scale, out, nullptr,
-                                nullptr, B, H, Sq, Skv, Skv_ref, D, strides, 6,
-                                scale_log2);
+  const FlashArgs a = make_args(q, k, v, kr, vr, ref_scale, out, nullptr, nullptr, B, H, Sq,
+                                Skv, Skv_ref, D, strides, 6, scale_log2, plan[2]);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (D % 8 != 0) return (int)cudaErrorInvalidValue;
-  if (D <= 48) return launch_bf16<48, 48, false>(a, st);
-  if (D <= 64) return launch_bf16<64, 64, false>(a, st);
-  if (D <= 80) return launch_bf16<80, 80, false>(a, st);
-  if (D <= 128) return launch_bf16<128, 128, false>(a, st);
-  if (D <= 160) return launch_bf16<160, 160, false>(a, st);
-  if (D <= 512) return launch_bf16<512, 128, false>(a, st);
-  return (int)cudaErrorInvalidValue;
+  if (D % 8 != 0 || D > 512) return (int)cudaErrorInvalidValue;
+  return by_width<false>(a, plan[0], plan[1], st);
 }
 
 extern "C" int flash_fwd_f32_launch(FLASH_ARGS) {
-  const FlashArgs a = make_args(q, k, v, kr, vr, ref_scale, out, nullptr,
-                                nullptr, B, H, Sq, Skv, Skv_ref, D, strides, 6,
-                                scale_log2);
+  const FlashArgs a = make_args(q, k, v, kr, vr, ref_scale, out, nullptr, nullptr, B, H, Sq,
+                                Skv, Skv_ref, D, strides, 6, scale_log2, 0);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (D <= 64) return launch_f32<2, false>(a, st);
   if (D <= 96) return launch_f32<3, false>(a, st);
@@ -411,21 +603,16 @@ extern "C" int flash_fwd_f32_launch(FLASH_ARGS) {
 // Residual mode (K5): also lse (B, H, n_sources, Sq) and, with two sources,
 // o2; `strides` holds 7 triples (the 7th is o2's, ignored without it).
 extern "C" int flash_fwd_res_bf16_launch(FLASH_ARGS, float* lse, void* o2) {
-  const FlashArgs a = make_args(q, k, v, kr, vr, ref_scale, out, lse, o2, B, H,
-                                Sq, Skv, Skv_ref, D, strides, 7, scale_log2);
+  const FlashArgs a = make_args(q, k, v, kr, vr, ref_scale, out, lse, o2, B, H, Sq, Skv,
+                                Skv_ref, D, strides, 7, scale_log2, plan[2]);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (D % 8 != 0) return (int)cudaErrorInvalidValue;
-  if (D <= 48) return launch_bf16<48, 48, true>(a, st);
-  if (D <= 64) return launch_bf16<64, 64, true>(a, st);
-  if (D <= 80) return launch_bf16<80, 80, true>(a, st);
-  if (D <= 128) return launch_bf16<128, 128, true>(a, st);
-  if (D <= 160) return launch_bf16<160, 160, true>(a, st);
-  return (int)cudaErrorInvalidValue;
+  if (D % 8 != 0 || D > 160) return (int)cudaErrorInvalidValue;
+  return by_width<true>(a, plan[0], plan[1], st);
 }
 
 extern "C" int flash_fwd_res_f32_launch(FLASH_ARGS, float* lse, void* o2) {
-  const FlashArgs a = make_args(q, k, v, kr, vr, ref_scale, out, lse, o2, B, H,
-                                Sq, Skv, Skv_ref, D, strides, 7, scale_log2);
+  const FlashArgs a = make_args(q, k, v, kr, vr, ref_scale, out, lse, o2, B, H, Sq, Skv,
+                                Skv_ref, D, strides, 7, scale_log2, 0);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (D <= 64) return launch_f32<2, true>(a, st);
   if (D <= 96) return launch_f32<3, true>(a, st);

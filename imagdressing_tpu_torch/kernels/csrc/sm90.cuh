@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks shared by the wgmma kernels (flash_bwd.cu,
-// gn_conv.cu): mbarriers, the proxy and wgmma fences, shared-memory matrix
+// Hopper (sm_90a) building blocks shared by the wgmma kernels (flash_fwd.cu,
+// flash_bwd.cu, gn_conv.cu): mbarriers, the proxy and wgmma fences, shared-memory matrix
 // descriptors, and the host-side lookup of the tensor-map encoder.
 #pragma once
 
@@ -10,8 +10,11 @@
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+// a barrier whose phase completes after `count` arrivals (and the bytes
+// announced by mbar_expect)
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
 }
 __device__ __forceinline__ void mbar_init_fence() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -21,6 +24,10 @@ __device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
                "r"(bytes)
                : "memory");
+}
+// one plain arrival (a consumer releasing a stage)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 // Wait for the phase of `parity` to complete. A wait that never ends (a
 // load never asked for) traps after ~2^28 polls, so the launch fails with an

@@ -7,7 +7,10 @@ become two CUDA sources:
 
   * K1 `_flash_kernel` (inference forward) -> `csrc/flash_fwd.cu`: one online
     softmax per source in fp32, the reference pass skipped for batch rows
-    whose scale is 0 (the CFG uncond half), and a single-source mode;
+    whose scale is 0 (the CFG uncond half), and a single-source mode; in
+    bf16 a wgmma kernel fed by a TMA ring (one producer warp, two consumer
+    warpgroups), whose tiles and ring depth come from `flash_plan`
+    (at D = 512 two blocks of 256 output columns per q tile);
   * K5 `_flash_res_kernel` (training forward) -> the residual mode of the
     same kernels: also each source's base-2 log-sum-exp and the reference
     source's output O2, and no row is ever skipped;
@@ -36,6 +39,8 @@ kernels' arithmetic and roundings.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 from typing import Optional, Tuple, Union
 
@@ -53,6 +58,15 @@ _BWD_SOURCE = "flash_bwd.cu"
 LOG2E = 1.4426950408889634
 MAX_HEAD_DIM = 512
 MAX_GRAD_HEAD_DIM = 160
+# the bf16 wgmma forward (`csrc/flash_fwd.cu:flash_fwd_wgmma`): its
+# instantiated N widths of O += P V up to D = 160, the widths that also have
+# 128-key tiles, the columns per block and the contraction above D = 160,
+# the shared memory a block may use on the H100, the deepest ring
+FWD_WIDTHS = (16, 32, 40, 64, 80, 128, 160)
+FWD_BKV128_MAX_DN = 80
+WIDE_DN, WIDE_DK = 256, 512
+SMEM_LIMIT = 232448
+MAX_STAGES = 4
 
 Scale = Union[float, torch.Tensor, None]
 
@@ -173,19 +187,97 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The bf16 forward's tiles
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashPlan:
+    """Tiles of the bf16 wgmma forward (K1, K5): `rows` q rows per block (64
+    per consumer warpgroup), `bkv` keys per tile, a ring of `stages` key /
+    value stages; `dn` the output columns of a block, the N width of O += P
+    V (up to D = 160 the smallest instantiated width >= D, one block per q
+    tile; above, WIDE_DN with ceil(D / dn) blocks per q tile), `dk` the
+    contraction (D padded to 16; WIDE_DK above D = 160), `smem` the block's
+    shared memory in bytes, `blocks` the launch's blocks."""
+    rows: int
+    bkv: int
+    stages: int
+    dn: int
+    dk: int
+    smem: int
+    blocks: int
+
+
+def fwd_smem(rows: int, bkv: int, stages: int, dn: int, dk: int,
+             dual: bool) -> int:
+    """`csrc/flash_fwd.cu:fwd_smem`: the q tile, the ring of key (dk
+    columns) and value (dn columns) tiles, source 0's fp32 output where it
+    does not stay in registers (two sources, dn > 128), the mbarriers."""
+    return (2 * (rows * dk + stages * bkv * (dk + dn))
+            + (rows * dn * 4 if dual and dn > 128 else 0)
+            + (2 * stages + 1) * 8)
+
+
+def fwd_tiles(d: int) -> Tuple[Tuple[int, int], ...]:
+    """The (rows, keys per tile) the bf16 forward is built with at head dim
+    d (`csrc/flash_fwd.cu:by_width`)."""
+    if d > MAX_GRAD_HEAD_DIM:
+        return ((64, 32),)
+    dn = min(w for w in FWD_WIDTHS if w >= d)
+    bkvs = (64, 128) if dn <= FWD_BKV128_MAX_DN else (64,)
+    return tuple((rows, bkv) for rows in (128, 64) for bkv in bkvs)
+
+
+@functools.lru_cache(maxsize=None)
+def flash_plan(b: int, sq: int, h: int, d: int, dual: bool,
+               rows: Optional[int] = None, bkv: Optional[int] = None,
+               stages: Optional[int] = None) -> FlashPlan:
+    """The bf16 forward's tiles for q (b, sq, h, d) with one or two sources,
+    as measured on the H100 (`tools/time_flash_ops.py --sweep`, PERF.md).
+    Rows: 128 (two consumer warpgroups share each key tile), even where that
+    leaves fewer blocks than SMs, except above D = 128, where source 0's
+    output waits in shared memory and 128-row blocks keep only a two-stage
+    ring: there 64. Keys per tile: 128 up to D = 80 (the per-tile fixed cost
+    over twice the keys), else 64 (registers); 32 above D = 160, whose
+    blocks hold a 512-wide contraction. The ring: the deepest of MAX_STAGES
+    .. 2 that fits the block's shared memory. `rows`, `bkv`, `stages` force
+    a choice among `fwd_tiles(d)` (the timing tools compare plans). Cached
+    per shape: the wrapper asks on every launch."""
+    if d > MAX_GRAD_HEAD_DIM:
+        dn, dk = WIDE_DN, WIDE_DK
+    else:
+        dn, dk = min(w for w in FWD_WIDTHS if w >= d), -(-d // 16) * 16
+    if rows is None:
+        rows = 64 if dn > 128 else 128
+    if bkv is None:
+        bkv = 32 if dn > MAX_GRAD_HEAD_DIM else (
+            128 if dn <= FWD_BKV128_MAX_DN else 64)
+    if stages is None:
+        stages = next((n for n in range(MAX_STAGES, 1, -1)
+                       if fwd_smem(rows, bkv, n, dn, dk, dual) <= SMEM_LIMIT),
+                      2)
+    return FlashPlan(rows, bkv, stages, dn, dk,
+                     fwd_smem(rows, bkv, stages, dn, dk, dual),
+                     b * h * -(-sq // rows) * -(-d // dn))
+
+
+# ---------------------------------------------------------------------------
 # CUDA launches
 # ---------------------------------------------------------------------------
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
+    """The built library with its functions typed, once per process."""
     lib = _build.load(_SOURCE)
     for fn in (lib.flash_fwd_bf16_launch, lib.flash_fwd_f32_launch):
-        fn.argtypes = [_P] * 7 + [_I] * 6 + [_P, _F, _P]
+        fn.argtypes = [_P] * 7 + [_I] * 6 + [_P, _F, _P, _P]
         fn.restype = _I
     for fn in (lib.flash_fwd_res_bf16_launch, lib.flash_fwd_res_f32_launch):
-        fn.argtypes = [_P] * 7 + [_I] * 6 + [_P, _F, _P, _P, _P]
+        fn.argtypes = [_P] * 7 + [_I] * 6 + [_P, _F, _P, _P, _P, _P]
         fn.restype = _I
     return lib
 
@@ -227,6 +319,8 @@ def _check_inputs(q, k, v, k_ref, v_ref, max_d: int) -> None:
     if v.shape[1] != k.shape[1] or (k_ref is not None
                                     and v_ref.shape[1] != k_ref.shape[1]):
         raise ValueError("flash_attention: k and v lengths differ")
+    if min(t.shape[1] for _, t in ops) == 0:
+        raise ValueError("flash_attention: an empty sequence")
 
 
 def _strides(*tensors) -> ctypes.Array:
@@ -234,8 +328,10 @@ def _strides(*tensors) -> ctypes.Array:
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def _launch_fwd(q, k, v, k_ref, v_ref, scale, residuals: bool):
-    """K1 (residuals=False) -> out; K5 (True) -> (out, lse, o2)."""
+def _launch_fwd(q, k, v, k_ref, v_ref, scale, residuals: bool,
+                plan: Optional[FlashPlan] = None):
+    """K1 (residuals=False) -> out; K5 (True) -> (out, lse, o2). `plan`
+    replaces `flash_plan`'s choice for the bf16 kernel (timing tools)."""
     b, sq, h, d = q.shape
     dual = k_ref is not None
     out = torch.empty((b, sq, h, d), device=q.device, dtype=q.dtype)
@@ -253,6 +349,12 @@ def _launch_fwd(q, k, v, k_ref, v_ref, scale, residuals: bool):
     strided = [q, k, v, kr, vr, out] + ([o2 if dual else out]
                                         if residuals else [])
     strides = _strides(*strided)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        plan = plan or flash_plan(b, sq, h, d, dual)
+        tiles = (ctypes.c_int * 3)(plan.rows, plan.bkv, plan.stages)
+    else:
+        tiles = (ctypes.c_int * 3)(0, 0, 0)
     lib = _lib()
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_ref.data_ptr() if dual else None,
@@ -260,8 +362,8 @@ def _launch_fwd(q, k, v, k_ref, v_ref, scale, residuals: bool):
             scale.data_ptr() if dual else None, out.data_ptr(),
             b, h, sq, k.shape[1], kr.shape[1], d,
             ctypes.cast(strides, ctypes.c_void_p), LOG2E / math.sqrt(d),
+            ctypes.cast(tiles, ctypes.c_void_p),
             _build.stream_handle(q.device)]
-    bf16 = q.dtype == torch.bfloat16
     if residuals:
         fn = lib.flash_fwd_res_bf16_launch if bf16 \
             else lib.flash_fwd_res_f32_launch

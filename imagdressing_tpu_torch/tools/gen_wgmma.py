@@ -19,7 +19,7 @@ from pathlib import Path
 OUT = Path(__file__).resolve().parent.parent / "kernels" / "csrc" / \
     "wgmma.cuh"
 SS_N = (32, 64, 128, 160, 256)
-RS_N = (16, 32, 40, 64, 80, 128, 160)
+RS_N = (16, 32, 40, 64, 80, 128, 160, 256)
 
 HEADER = """\
 // Generated by imagdressing_tpu_torch/tools/gen_wgmma.py; do not edit.

@@ -8,9 +8,11 @@ JSON object: wall time, per-stage wall times, the device's busy share of
 the wall window, device time by kernel class and by kernel, and, for the
 two kernels with many shapes (K1, K2), each shape's launches in that call,
 its device time (CUDA-graph replays of the call: the deep UNet shapes take
-less device time than host time), achieved TFLOP/s and bound (the larger of
-tensor FLOPs over 989 TFLOP/s and bytes over 3.35 TB/s), and for K2 the
-plan (pixel tile, N width, K splits).
+less device time than host time), achieved TFLOP/s and bound (the largest
+of tensor FLOPs over 989 TFLOP/s, bytes over 3.35 TB/s and, for K1, one
+exp2 per (q, k) pair and source run over the special-function units), and
+the plan: K2's pixel tile, N width and K splits, K1's rows, keys per tile
+and ring depth.
 
 Usage (on the card's machine, from the repository root):
     python -m imagdressing_tpu_torch.tools.profile_infer [WxH] [steps]
@@ -29,7 +31,8 @@ import numpy as np
 # kernel-name markers, checked in order (cuDNN's conv kernels are also
 # implicit GEMMs, so convolution markers come before the GEMM ones)
 CLASSES = (
-    ("K1 flash_fwd", ("flash_fwd",)),
+    ("K1 flash_fwd_wgmma", ("flash_fwd_wgmma",)),
+    ("K1 flash_fwd_f32", ("flash_fwd_f32",)),
     ("K2 split-K reduce", ("splitk_reduce",)),
     ("K2 conv (wgmma; fp32 SIMT)", ("gn_conv3x3",)),
     ("GN statistics (K2, K3)", ("gn_partial_sums", "gn_finalize")),
@@ -49,21 +52,28 @@ def classify(name: str) -> str:
 
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_MS = 989e9  # dense bf16 tensor cores, same source
+# exp2 on the special-function units: 132 SMs x 16 per clock at the H100's
+# maximum SM clock, 1980 MHz (`nvidia-smi --query-gpu=clocks.max.sm`)
+EXP2_PER_MS = 132 * 16 * 1.98e6
 
 
-def _shape_rows(counter, make_call, flops, nbytes, extra=lambda *k: {}):
+def _shape_rows(counter, make_call, flops, nbytes, extra=lambda *k: {},
+                exp2=lambda *k: 0.0):
     """Per launch shape of one kernel: launches, device ms per launch (CUDA
-    graph replays), the total, the achieved TFLOP/s and the bound, the
-    costliest shape first."""
+    graph replays), the total, the achieved TFLOP/s and the bound with its
+    terms (tensor FLOPs, bytes, exp2 evaluations), the costliest shape
+    first."""
     from imagdressing_tpu_torch.tools.timing import cuda_graph_ms
 
     rows = []
     for key, n in counter.by_shape.items():
         ms = cuda_graph_ms(make_call(*key), calls=10, replays=10)
-        bound = max(flops(*key) / BF16_FLOPS_PER_MS,
-                    nbytes(*key) / HBM_BYTES_PER_MS)
+        terms = {"tensor": flops(*key) / BF16_FLOPS_PER_MS,
+                 "bytes": nbytes(*key) / HBM_BYTES_PER_MS,
+                 "exp2": exp2(*key) / EXP2_PER_MS}
         rows.append(dict(shape=list(key), launches=n, ms=ms, total_ms=ms * n,
-                         tflops=flops(*key) / ms / 1e9, bound_ms=bound,
+                         tflops=flops(*key) / ms / 1e9,
+                         bound_ms=max(terms.values()), bound_terms_ms=terms,
                          **extra(*key)))
     return sorted(rows, key=lambda r: -r["total_ms"])
 
@@ -115,10 +125,21 @@ def _flash_call(b, s, h, d, dual):
 
 
 def _flash_flops(b, s, h, d, dual):
-    # _flash_call's scales: a batch of 2 is a CFG batch [0, 1], whose
-    # scale-0 row skips the garment pass
+    return 4.0 * d * _flash_exp2(b, s, h, d, dual)
+
+
+def _flash_exp2(b, s, h, d, dual):
+    # one per (q, k) pair and source run; _flash_call's scales: a batch of 2
+    # is a CFG batch [0, 1], whose scale-0 row skips the garment pass
     ref_rows = (1 if b == 2 else b) if dual else 0
-    return 4.0 * h * s * s * d * (b + ref_rows)
+    return float(h * s * s * (b + ref_rows))
+
+
+def _flash_plan(b, s, h, d, dual):
+    from imagdressing_tpu_torch.kernels.flash_attention import flash_plan
+
+    p = flash_plan(b, s, h, d, dual)
+    return {"plan": dict(rows=p.rows, bkv=p.bkv, stages=p.stages, dn=p.dn)}
 
 
 def main(size: str = "512x640", steps: int = 30) -> dict:
@@ -176,7 +197,7 @@ def main(size: str = "512x640", steps: int = 30) -> dict:
             lambda b, h, w, cin, co: 2.0 * b * h * w * 9 * cin * co,
             _conv_bytes, _conv_plan),
         flash_shapes=_shape_rows(fa.COUNTER, _flash_call, _flash_flops,
-                                 _flash_bytes))
+                                 _flash_bytes, _flash_plan, _flash_exp2))
     print(json.dumps(result), flush=True)
     return result
 

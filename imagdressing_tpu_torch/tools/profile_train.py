@@ -22,9 +22,9 @@ from collections import defaultdict
 from imagdressing_tpu_torch.tools.profile_infer import classify
 
 # the training kernels, checked before the inference classes (K5 is the
-# residual mode of K1's kernel template)
+# residual mode of K1's kernel template, its last template argument true)
 TRAIN_CLASSES = (
-    ("K5 flash_fwd_res", ("flash_fwd_bf16<", ", true>")),
+    ("K5 flash_fwd_res", ("flash_fwd_wgmma<", ", true>")),
     ("K6a flash_bwd_dkv", ("flash_bwd_dkv",)),
     ("K6b flash_bwd_dq", ("flash_bwd_dq",)),
 )

@@ -70,6 +70,69 @@ def test_flash_kernel_matches_plain(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,h,d,dual", [
+    (2, 5120, 8, 40, True), (2, 1280, 8, 80, True), (2, 320, 8, 160, True),
+    (2, 80, 8, 160, True), (1, 5120, 8, 40, False), (1, 1280, 8, 80, False),
+    (1, 320, 8, 160, False), (1, 80, 8, 160, False),
+    (1, 5120, 1, 512, False)])
+def test_flash_kernel_matches_plain_at_every_level(cuda, b, s, h, d, dual,
+                                                   dtype):
+    """K1 at every self-attention level of the `basic` path (the main UNet's
+    CFG batch with scale [0, 1], the garment UNet's batch 1) and the VAE's
+    D = 512 mid attention."""
+    gen = torch.Generator(device="cuda").manual_seed(s + d)
+    q, k, v = (_randn(gen, (b, s, h, d), dtype) for _ in range(3))
+    ref = ()
+    if dual:
+        ref = (_randn(gen, (b, s, h, d), dtype),
+               _randn(gen, (b, s, h, d), dtype),
+               torch.tensor([0.0, 1.0], device="cuda"))
+    got = fa.flash_attention(q, k, v, *ref)
+    torch.cuda.synchronize()
+    _close(got, fa.flash_attention_plain(q, k, v, *ref), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [40, 160])
+@pytest.mark.parametrize("sq,skv,sref", [(100, 100, 37), (80, 77, 130)])
+def test_flash_forward_ragged_matches_plain(cuda, sq, skv, sref, d, dtype):
+    """K1 and K5 at ragged lengths, scale [0, 0.7]: the zero-filled tails
+    of the q and key tiles (and of the D padding at D = 40), the masked
+    keys; K1 skips the scale-0 row's reference pass, K5 does not."""
+    gen = torch.Generator(device="cuda").manual_seed(sq + skv + d)
+    q = _randn(gen, (2, sq, 2, d), dtype)
+    k, v = (_randn(gen, (2, skv, 2, d), dtype) for _ in range(2))
+    kr, vr = (_randn(gen, (2, sref, 2, d), dtype) for _ in range(2))
+    scale = torch.tensor([0.0, 0.7], device="cuda")
+    got = fa.flash_attention(q, k, v, kr, vr, scale)
+    res = fa.flash_attention_res(q, k, v, kr, vr, scale)
+    torch.cuda.synchronize()
+    _close(got, fa.flash_attention_plain(q, k, v, kr, vr, scale), dtype)
+    want = fa.flash_attention_res_plain(q, k, v, kr, vr, scale)
+    _close(res[0], want[0], dtype)
+    _close(res[2], want[2], dtype)
+    assert (res[1] - want[1]).abs().max().item() <= 1e-3  # base-2 lse
+
+
+def test_flash_forward_is_deterministic(cuda):
+    """K1 at the CFG batch and K5 at the training shape, twice on the same
+    inputs: bit-identical out, lse and O2 (no atomics)."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v, kr, vr = (_randn(gen, (2, 5120, 8, 40), torch.bfloat16)
+                       for _ in range(5))
+    scale = torch.tensor([0.0, 1.0], device="cuda")
+    assert torch.equal(fa.flash_attention(q, k, v, kr, vr, scale),
+                       fa.flash_attention(q, k, v, kr, vr, scale))
+    one = [x[1:].contiguous() for x in (q, k, v, kr, vr)]
+    s1 = torch.ones(1, device="cuda")
+    first = fa.flash_attention_res(*one, s1)
+    second = fa.flash_attention_res(*one, s1)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_gn_conv_kernel_matches_plain(cuda, dtype):
     gen = torch.Generator(device="cuda").manual_seed(1)
     b, h, w, cin, co = 2, 80, 64, 320, 320

@@ -25,6 +25,7 @@ from imagdressing_tpu_torch.kernels.flash_attention import (
     flash_attention_res_plain,
 )
 from imagdressing_tpu_torch.core.config import UNetConfig, VAEConfig
+from imagdressing_tpu_torch.kernels import flash_attention as tfa
 from imagdressing_tpu_torch.kernels import fused_gn_conv as fgc
 from imagdressing_tpu_torch.kernels.fused_gn_conv import gn_silu_conv3x3
 from imagdressing_tpu_torch.kernels.fused_groupnorm import group_norm_act
@@ -107,6 +108,91 @@ def test_flash_ragged_matches_xla_forward(sq, skv, sref):
     # the scale-0 row is exactly the single-source attention
     single = flash_attention(*map(_t, (q, k, v)))
     assert torch.equal(got[0], single[0])
+
+
+def test_flash_bf16_matches_pallas_interpret(fa_interpret):
+    """The bf16 leg: K1's plain version on bf16 inputs against the JAX
+    kernel in interpret mode on the same bf16 inputs, S=256, D=40, dual,
+    scale [0, 0.7]. Tolerance 2**-8 + 4e-3: one bf16 rounding of each
+    output (a full bf16 quantum below |y| = 1, 2**-8; max|ref| is ~0.8) plus
+    the JAX kernel's temperature shift, which folds 1/sqrt(D) into bf16 q
+    (~0.2 % of the logits, PARITY.md) where the port keeps the scale in fp32:
+    up to ~0.2 % of a logit spread of a few units through both sources. The
+    error measured with this seed is 0.0049."""
+    rng = np.random.default_rng(3)
+    q, k, v, kr, vr = (rng.standard_normal((2, 256, 2, 40)).astype(np.float32)
+                       for _ in range(5))
+    scale = np.array([0.0, 0.7], np.float32)
+    want = jfa.flash_attention(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, kr, vr)),
+        jnp.asarray(scale))
+    got = flash_attention(*(_t(x).to(torch.bfloat16) for x in (q, k, v, kr, vr)),
+                          _t(scale))
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=2.0 ** -8 + 4e-3, rtol=0)
+
+
+def _full_width_flash_shapes():
+    """(b, sq, h, d) of every flash forward (K1, and K5 under a gradient) of
+    the full-width `basic` path and training step at 512x640: each UNet
+    self-attention level with attention (main and garment UNet, batch 2 and
+    1) and the VAE's single-head mid attention; then the same for the tiny
+    test stacks (`small=True` and `chip_smoke.py`'s mini stack, 64x64 images)
+    where the head dim meets the card's rule (a multiple of 8)."""
+    shapes = set()
+    stacks = [(UNetConfig(), VAEConfig(), 640, 512),
+              (UNetConfig(block_out_channels=(16, 32, 64, 64),
+                          attention_num_heads=4),
+               VAEConfig(block_out_channels=(16, 16, 32, 32)), 64, 64),
+              (UNetConfig(block_out_channels=(32, 64, 64, 64),
+                          attention_num_heads=4),
+               VAEConfig(block_out_channels=(32, 32, 64, 64)), 64, 64)]
+    for u, v, hh, ww in stacks:
+        lh, lw = hh // 8, ww // 8
+        levels = [lvl for lvl, a in enumerate(u.down_block_has_attn) if a]
+        levels.append(len(u.block_out_channels) - 1)  # the mid block
+        for b in (1, 2):
+            for lvl in levels:
+                d = u.block_out_channels[lvl] // u.attention_num_heads
+                if d % 8 == 0:
+                    shapes.add((b, (lh >> lvl) * (lw >> lvl),
+                                u.attention_num_heads, d))
+            shapes.add((b, lh * lw, 1, v.block_out_channels[-1]))
+    return sorted(shapes)
+
+
+def test_flash_plan_keeps_the_kernel_limits():
+    """The bf16 forward's plan at every flash shape of the full-width paths
+    and the tiny test stacks, with one and two sources: shared memory within
+    the 227 KB a block may use, rows a multiple of 64 (one consumer
+    warpgroup each, at most two), the contraction a multiple of 16 covering
+    D, the output columns an instantiated N width (up to D = 160 one block
+    covering D; the VAE's D = 512 in blocks of 256), tiles the kernel is
+    built with, a ring of at least two stages, and the grid the kernel
+    launches."""
+    shapes = _full_width_flash_shapes()
+    assert (2, 5120, 8, 40) in shapes and (2, 80, 8, 160) in shapes \
+        and (1, 5120, 1, 512) in shapes and (2, 64, 4, 8) in shapes
+    assert {d for *_, d in shapes if d > tfa.MAX_GRAD_HEAD_DIM} == {512}
+    for b, sq, h, d in shapes:
+        for dual in (True, False):
+            p = tfa.flash_plan(b, sq, h, d, dual)
+            what = (b, sq, h, d, dual, p)
+            assert p.smem <= tfa.SMEM_LIMIT == 232448, what
+            assert p.smem == tfa.fwd_smem(p.rows, p.bkv, p.stages, p.dn,
+                                          p.dk, dual), what
+            assert p.rows in (64, 128) and p.rows % 64 == 0, what
+            assert p.dk % 16 == 0 and p.dk >= d, what
+            if d <= tfa.MAX_GRAD_HEAD_DIM:
+                assert p.dk < d + 16 and p.dn in tfa.FWD_WIDTHS, what
+                assert p.dn >= d, what
+            else:
+                assert (p.dn, p.dk) == (tfa.WIDE_DN, tfa.WIDE_DK), what
+            assert (p.rows, p.bkv) in tfa.fwd_tiles(d), what
+            assert 2 <= p.stages <= tfa.MAX_STAGES, what
+            assert p.blocks == b * h * -(-sq // p.rows) * -(-d // p.dn), what
 
 
 # ---------------------------------------------------------------------------
