@@ -10,9 +10,12 @@ Phases, each printing one line:
      also at ragged lengths), the training forward with residuals and both
      backward kernels (with K6b's D_i, and at ragged lengths), the GN+conv
      at the deep UNet levels (split K) and at a ragged shape, and the
-     gradients of the GN+conv and GroupNorm autograd Functions; then
-     determinism: K1, K5, the backward pair and the GN+conv (split K and
-     not) twice on the same inputs must give bit-identical results;
+     gradients of the GN+conv and GroupNorm autograd Functions, K3 at the
+     four UNet levels at batch 2 and 1, with the temb fold, at a ragged
+     shape and at a VAE pixel level (streaming); then determinism: K1, K5,
+     the backward pair, the GN+conv (split K, not, and streaming) and K3
+     (resident and streaming) twice on the same inputs must give
+     bit-identical results;
   4. mini: a small fp32 stack run end to end on the card and on the CPU (the
      CPU runs every kernel's plain version): the outputs must agree;
   5. mini_train: two training steps of the same small stack on the card and
@@ -23,7 +26,8 @@ Phases, each printing one line:
      (bytes, tensor-core FLOPs, and for the flash kernels exp2 per (q, k)
      pair); the backward pair's time beside its function's bound; the
      GN+conv also at the deep UNet shapes where its time goes, with its
-     normalize pass timed alone and the plan (tiles, K splits) of each; K1
+     GN+SiLU prologue timed alone and the plan (tiles, K splits) of each;
+     K3 at the four UNet levels with F.group_norm beside it; K1
      at every level of the main path and at D = 512, K5 at every training
      level (CUDA-graph replays, eager times beside);
   7. main: the `basic` preset through DressingModels / DressingPipeline at
@@ -176,6 +180,7 @@ def gn_conv_case(b, h, w, cin, co, with_add, dtype, seed, groups=32):
     import torch.nn.functional as F
 
     from imagdressing_tpu_torch.kernels import fused_gn_conv as fgc
+    from imagdressing_tpu_torch.kernels import fused_groupnorm as fg
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -198,10 +203,9 @@ def gn_conv_case(b, h, w, cin, co, with_add, dtype, seed, groups=32):
         hh = F.silu(F.group_norm(xin, groups, gw, gb, 1e-5))
         return F.conv2d(hh, wt, cb, padding=1)
 
-    def normalize():
-        scale, shift = fgc.scale_shift(x, gw, gb, add, num_groups=groups,
-                                       eps=1e-5)
-        return lambda: fgc.gn_silu_normalize(x, scale, shift)
+    def normalize():  # the op's GN+SiLU prologue alone: K3's own launch
+        return fg.group_norm_act(x, gw, gb, num_groups=groups, eps=1e-5,
+                                 act="silu", add=add)
 
     flops = 2.0 * b * h * w * 9 * cin * co
     item = x.element_size()
@@ -217,7 +221,11 @@ def gn_conv_case(b, h, w, cin, co, with_add, dtype, seed, groups=32):
                           splits=plan.splits, blocks=plan.blocks))
 
 
-def group_norm_case(shape, act, dtype, seed):
+def group_norm_case(shape, act, dtype, seed, groups=32, with_add=False):
+    """K3 against its plain version; library: F.group_norm (and the add and
+    F.silu where the case has them) on the channel-last input, by CUDA-graph
+    replay (eager beside it): a few microseconds of kernel behind more host
+    time."""
     import torch
     import torch.nn.functional as F
 
@@ -228,18 +236,29 @@ def group_norm_case(shape, act, dtype, seed):
     x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
     w = (1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")).to(dtype)
     bb = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(dtype)
+    add = torch.randn((shape[0], c), generator=gen, device="cuda").to(dtype) \
+        if with_add else None
     eps = 1e-6 if act == "none" else 1e-5
-    kw = dict(num_groups=32, eps=eps, act=act)
+    kw = dict(num_groups=groups, eps=eps, act=act, add=add)
     x_ncl = x.reshape(shape[0], -1, c).transpose(1, 2)
 
     def library():
-        y = F.group_norm(x_ncl, 32, w, bb, eps)
+        xin = x_ncl + add[:, :, None] if with_add else x_ncl
+        y = F.group_norm(xin, groups, w, bb, eps)
         return F.silu(y) if act == "silu" else y
 
+    plan = fg.gn_plan(shape[0], x.numel() // (shape[0] * c), c, groups,
+                      dtype, act)
     return dict(kernel=lambda: fg.group_norm_act(x, w, bb, **kw),
                 plain=lambda: fg.group_norm_act_plain(x, w, bb, **kw),
                 library=library, flops=0.0, bytes=2.0 * x.numel()
-                * x.element_size())
+                * x.element_size(), graph=True,
+                plan=dataclasses.asdict(plan))
+
+
+def group_norm_label(shape, act, groups=32, with_add=False):
+    return "x".join(map(str, shape)) + act + ("+add" if with_add else "") \
+        + ("" if groups == 32 else f"/g{groups}")
 
 
 def bn_act_case(shape, act, dtype, seed):
@@ -475,6 +494,22 @@ def gn_conv_label(b, h, w, cin, co, add):
     return f"{b}x{h}x{w}x{cin}->{co}" + ("+add" if add else "")
 
 
+# K3 check cases (shape, act, groups, add); the first four are also timed
+GN_CASES = [((2, 5120, 320), "none", 32, False),
+            ((2, 1280, 640), "none", 32, False),
+            ((2, 320, 1280), "none", 32, False),
+            ((2, 80, 1280), "none", 32, False),
+            ((1, 5120, 320), "none", 32, False),
+            ((1, 1280, 640), "none", 32, False),
+            ((1, 320, 1280), "none", 32, False),
+            ((1, 80, 1280), "none", 32, False),
+            ((2, 80, 64, 320), "silu", 32, False),
+            ((2, 5120, 320), "silu", 32, True),
+            ((1, 77, 40), "none", 8, False),
+            ((1, 327680, 128), "silu", 32, True)]
+K3_TIMED = [group_norm_label(*a) for a in GN_CASES[:4]]
+
+
 # K5 / K6 check shapes: the four UNet self-attention levels of a batch-1
 # training step, dual (main UNet, scale 1) and single (garment UNet), and a
 # batch-2 case with scale [0, 0.7] (the zero-written reference gradients)
@@ -511,10 +546,15 @@ def check_cases():
                       lambda dt, sd, a=(b, h, w, cin, co, add):
                       gn_conv_case(*a, dt, sd, groups=32 if a[3] % 32 == 0
                                    else 8)))
-    for shape, act in [((2, 5120, 320), "none"), ((2, 80, 64, 320), "silu")]:
-        cases.append(("group_norm_act", "x".join(map(str, shape)) + act,
-                      lambda dt, sd, a=(shape, act): group_norm_case(*a, dt,
-                                                                     sd)))
+    # K3: the transformer in-norms at the four UNet levels of a CFG step and
+    # of the garment pass, conv_norm_out (silu), the GN+conv prologue's
+    # function (temb folded, silu), a ragged shape (77 rows, groups of 5
+    # channels) and a VAE pixel level in streaming mode
+    for shape, act, groups, with_add in GN_CASES:
+        cases.append(("group_norm_act",
+                      group_norm_label(shape, act, groups, with_add),
+                      lambda dt, sd, a=(shape, act), g=groups, t=with_add:
+                      group_norm_case(*a, dt, sd, groups=g, with_add=t)))
     train = [(shape, dual, [1.0]) for shape in TRAIN_FLASH_SHAPES
              for dual in (True, False)]
     train.append(((2, 320, 8, 160), True, [0.0, 0.7]))
@@ -631,11 +671,14 @@ def phase_check():
 def phase_determinism():
     """K1 and K5, then K6b + K6a, twice on the same inputs at the main
     shapes: bit-identical outputs, lse, O2, gradients and D_i (no atomics, a
-    fixed summation order); K2 twice at a split-K shape and at its timed
-    shape (the split partials added in a fixed order)."""
+    fixed summation order); K2 twice at a split-K shape, at its timed shape
+    and at a VAE pixel level (the split partials and the GroupNorm's
+    partials added in a fixed order); K3 twice in resident and in
+    streaming mode."""
     import torch
 
-    for shape in [(2, 10, 8, 1280, 1280, True), (2, 80, 64, 320, 320, True)]:
+    for shape in [(2, 10, 8, 1280, 1280, True), (2, 80, 64, 320, 320, True),
+                  (1, 640, 512, 256, 128, False)]:
         case = gn_conv_case(*shape, torch.bfloat16, 8)
         first = case["kernel"]()
         second = case["kernel"]()
@@ -646,6 +689,23 @@ def phase_determinism():
              bit_equal={"out": same}, ok=same)
         if not same:
             raise SmokeFailure(f"K2 repeat not bit-identical at {shape}")
+        del case, first, second
+
+    # K3 resident (one cluster launch) and streaming (the clusters'
+    # partials added by the last cluster to arrive)
+    for shape in [(2, 5120, 320), (1, 327680, 128)]:
+        case = group_norm_case(shape, "silu", torch.bfloat16, 8,
+                               with_add=True)
+        first = case["kernel"]()
+        second = case["kernel"]()
+        torch.cuda.synchronize()
+        same = bool(torch.equal(first, second))
+        emit("determinism", kernel="group_norm_act",
+             shape=group_norm_label(shape, "silu", with_add=True),
+             dtype="bf16", plan=case["plan"], bit_equal={"out": same},
+             ok=same)
+        if not same:
+            raise SmokeFailure(f"K3 repeat not bit-identical at {shape}")
         del case, first, second
 
     for name, case in (
@@ -726,8 +786,8 @@ def phase_time():
                    bound_unit=unit, bound_terms_ms=terms,
                    tflops=case["flops"] / ms / 1e9, **extra)
         if name == "gn_silu_conv3x3" and label == TIMED[name]:
-            # the normalize pass alone: one read of x, one write of h
-            row["normalize_ms"] = cuda_graph_ms(case["normalize"]())
+            # the GN+SiLU prologue alone: one read of x, one write of h
+            row["normalize_ms"] = cuda_graph_ms(case["normalize"])
             row["normalize_bound_ms"] = 2.0 * case["x_bytes"] \
                 / HBM_BYTES_PER_S * 1e3
         emit("time", kernel=name, **row)
@@ -737,6 +797,9 @@ def phase_time():
                for name, label in TIMED.items()}
     for label in K2_DEEP_TIMED:
         timed("gn_silu_conv3x3", label, "bf16")
+    for label in K3_TIMED:
+        if label != TIMED["group_norm_act"]:
+            timed("group_norm_act", label, "bf16")
     # K1 at its other check shapes (every level of the main path, and the
     # VAE's D = 512), K5 at the other training levels
     for label in K1_TIMED:
@@ -996,6 +1059,8 @@ def phase_main(counters):
          conv_launches_by_shape={str(k): v for k, v in conv_shapes.items()},
          flash_launches_by_shape={str(k): v
                                   for k, v in flash_shapes.items()},
+         group_norm_launches_by_shape={
+             str(k): v for k, v in launches["group_norm_act"][1].items()},
          conv_plans_tw_th_bn_splits=plans)
     zero = [k for k, n in counts.items() if n == 0]
     if zero:

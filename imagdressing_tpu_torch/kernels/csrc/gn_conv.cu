@@ -13,15 +13,18 @@
 // the ~295 ridge), except at the deepest UNet level, where M = 80-160
 // pixels and the 29-59 MB of weights set the bound.
 //
-// bf16 design (sm_90a), four launches on one stream:
-//  1-2. the GroupNorm statistics (gn_stats.cuh): per-(B, Cin) fp32
-//       scale/shift;
-//  3.   normalize once: h = silu(x * scale + shift), fp32 arithmetic rounded
-//       once to bf16 into a scratch of x's shape (gn_apply). The rounding
-//       points are the plain version's. The TPU kernel kept h out of device
-//       memory; here the conv is operations-bound, and h's write and read
-//       cost ~2*M*Cin*2 bytes, far less than normalizing each element again
-//       for every tap and every N tile (9 * Cout/BN times);
+// bf16 design (sm_90a), two launches on one stream (three where the plan
+// splits K; one more where the GroupNorm streams):
+//  1-3. normalize once: h = silu(GN(x + add)), fp32 arithmetic rounded once
+//       to bf16 into a scratch of x's shape, by the fused GroupNorm's own
+//       launch (gn_stats.cuh:gn_launch with act = silu, as groupnorm.cu runs
+//       it): one cluster launch with the rows resident in shared memory, or,
+//       at the VAE's pixel levels, the streaming statistics and an apply
+//       pass. The rounding points are the plain version's. The TPU kernel
+//       kept h out of device memory; here the conv is operations-bound, and
+//       h's write and read cost ~2*M*Cin*2 bytes, far less than normalizing
+//       each element again for every tap and every N tile (9 * Cout/BN
+//       times);
 //  4.   the conv as an implicit GEMM: M = pixels, N = Cout, K = 9 * Cin, in
 //       K steps of one tap x 64 channels. A block owns a 128-pixel tile (TH
 //       rows x TW columns of one image; TW a power of two) and BN output
@@ -44,7 +47,8 @@
 //
 // The fp32 variant (parity mode) is a SIMT kernel: a 64x64 output tile per
 // block, the A tile normalized and passed through SiLU on its way into
-// shared memory, fp32 FMAs.
+// shared memory, fp32 FMAs. It reads per-(B, Cin) scale/shift, which the
+// streaming statistics launch (gn_stats.cuh) writes.
 #include "gn_stats.cuh"
 #include "sm90.cuh"
 #include "wgmma.cuh"
@@ -90,14 +94,6 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, i
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(smem_u32(bar))
-      : "memory");
-}
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            int c2, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -410,51 +406,52 @@ __global__ void __launch_bounds__(FNT)
 
 }  // namespace
 
-// x, add (or null), gamma, beta, w (Cout,3,3,Cin), bias, out; partial:
-// B * nchunks * Cin float2 of statistics; scale/shift: B * Cin fp32.
-// bf16 also: hbuf, bf16 of x's shape (the normalized activation); kpart, the
-// (splits, M, Cout) fp32 partials (null when splits == 1); the plan's pixel
-// tile width tw (a power of two <= 128), N width bn (64, 128, 160, 256) and
-// K splits. Each returns a CUDA error code (1 for a plan it does not take).
+// x, add (or null), gamma, beta, w (Cout,3,3,Cin), bias, out; ws: the
+// GroupNorm's streaming workspace (gn_stats.cuh:gn_launch; null when the
+// plan is resident); count: B zeroed arrival counters; the GroupNorm plan's
+// fields (fused_groupnorm.py:GnPlan). bf16 also: hbuf, bf16 of x's shape (the
+// normalized activation); kpart, the (splits, M, Cout) fp32 partials (null
+// when splits == 1); the conv plan's pixel tile width tw (a power of two <=
+// 128), N width bn (64, 128, 160, 256) and K splits. fp32: a streaming plan
+// (cs, nclusters, rows_per_block); ws then ends with scale and shift. Each
+// returns a CUDA error code (cudaErrorInvalidValue for a plan it does not
+// take).
 extern "C" int gn_silu_conv3x3_bf16(const void* x, const void* add, const void* gamma,
                                     const void* beta, const void* w, const void* bias, void* out,
-                                    void* partial, float* scale, float* shift, void* hbuf,
-                                    float* kpart, int B, int H, int W, int Cin, int Cout, int G,
-                                    float eps, int nchunks, int rows_per_chunk, int tw, int bn,
+                                    float* ws, unsigned* count, void* hbuf, float* kpart, int B,
+                                    int H, int W, int Cin, int Cout, int G, float eps,
+                                    int resident, int cs, int sw, int box_rows, int nboxes,
+                                    int nclusters, int rows_per_block, int tw, int bn,
                                     int splits, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const bf16* xb = static_cast<const bf16*>(x);
-  gn_stats_launch<bf16>(xb, static_cast<const bf16*>(add), static_cast<const bf16*>(gamma),
-                        static_cast<const bf16*>(beta), B, H * W, Cin, G, eps, nchunks,
-                        rows_per_chunk, static_cast<float2*>(partial), scale, shift, st);
-  gn_apply_launch<bf16>(xb, scale, shift, static_cast<bf16*>(hbuf), B, H * W, Cin, 1, st);
-  const int rc = (int)cudaGetLastError();
+  const GnPlan p{resident, cs, sw, box_rows, nboxes, nclusters, rows_per_block};
+  const int rc = gn_launch<bf16>(static_cast<const bf16*>(x), static_cast<const bf16*>(add),
+                                 static_cast<const bf16*>(gamma), static_cast<const bf16*>(beta),
+                                 static_cast<bf16*>(hbuf), ws, count, B, H * W, Cin, G, eps, 1,
+                                 p, st);
   if (rc != 0) return rc;
   return conv_bf16(hbuf, w, bias, out, kpart, B, H, W, Cin, Cout, tw, bn, splits, st);
 }
 
 extern "C" int gn_silu_conv3x3_f32(const void* x, const void* add, const void* gamma,
                                    const void* beta, const void* w, const void* bias, void* out,
-                                   void* partial, float* scale, float* shift, int B, int H,
-                                   int W, int Cin, int Cout, int G, float eps, int nchunks,
-                                   int rows_per_chunk, void* stream) {
+                                   float* ws, unsigned* count, int B, int H, int W, int Cin,
+                                   int Cout, int G, float eps, int cs, int nclusters,
+                                   int rows_per_block, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
-  gn_stats_launch<float>(xf, static_cast<const float*>(add), static_cast<const float*>(gamma),
-                         static_cast<const float*>(beta), B, H * W, Cin, G, eps, nchunks,
-                         rows_per_chunk, static_cast<float2*>(partial), scale, shift, st);
+  const GnPlan p{0, cs, 0, 0, 0, nclusters, rows_per_block};
+  float* scale = ws + 2 * (size_t)B * nclusters * Cin;
+  float* shift = scale + (size_t)B * Cin;
+  const int rc = gn_stream_stats_launch<float>(
+      xf, static_cast<const float*>(add), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), B, H * W, Cin, G, eps, p, reinterpret_cast<float2*>(ws),
+      count, scale, shift, st);
+  if (rc != 0) return rc;
   const long long Mtot = (long long)B * H * W;
   dim3 grid((unsigned)((Mtot + FBM - 1) / FBM), (unsigned)((Cout + FBN - 1) / FBN));
   gn_conv3x3_f32<<<grid, FNT, 0, st>>>(xf, scale, shift, static_cast<const float*>(w),
                                        static_cast<const float*>(bias),
                                        static_cast<float*>(out), B, H, W, Cin, Cout);
-  return (int)cudaGetLastError();
-}
-
-// The normalize pass alone (bf16), h = silu(x * scale + shift): for timing.
-extern "C" int gn_silu_normalize_bf16(const void* x, const float* scale, const float* shift,
-                                      void* h, int B, int M, int C, void* stream) {
-  gn_apply_launch<bf16>(static_cast<const bf16*>(x), scale, shift, static_cast<bf16*>(h), B, M,
-                        C, 1, reinterpret_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }

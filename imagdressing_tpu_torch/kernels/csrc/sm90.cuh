@@ -1,6 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the wgmma kernels (flash_fwd.cu,
-// flash_bwd.cu, gn_conv.cu): mbarriers, the proxy and wgmma fences, shared-memory matrix
-// descriptors, and the host-side lookup of the tensor-map encoder.
+// Hopper (sm_90a) building blocks shared by the port's kernels (flash_fwd.cu,
+// flash_bwd.cu, gn_conv.cu, groupnorm.cu): mbarriers, 3-D TMA loads, the
+// cluster barrier and distributed shared-memory loads, the proxy
+// and wgmma fences, shared-memory matrix descriptors, and the host-side
+// lookup of the tensor-map encoder.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (the encoder is reached through the runtime)
@@ -43,6 +45,42 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
         : "r"(smem_u32(bar)), "r"(parity)
         : "memory");
   }
+}
+// Fetch a tensor map (a __grid_constant__ kernel parameter) ahead of its
+// first TMA use.
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+// One TMA box of a 3-D tensor map into this block's shared memory,
+// completing on `bar`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+// The thread-block cluster's barrier, split: arrive (release: this
+// thread's shared-memory writes before it are seen by every block of the
+// cluster after its wait), then wait (acquire). Every thread of every
+// block of the cluster takes part.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// The float2 at p's shared-memory offset in block `rank` of the cluster
+// (distributed shared memory).
+__device__ __forceinline__ float2 ld_cluster(const float2* p, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(remote));
+  return v;
 }
 // generic-proxy writes to shared memory (st.shared) -> visible to wgmma's
 // async-proxy reads

@@ -4,13 +4,16 @@ Port of two Pallas kernels of `imagdressing_tpu/kernels/fused_gn_conv.py`
 that compute this one function: `_kernel` (whole batch row resident) and
 `_windowed_kernel` (row windows with one-row halos for the VAE's
 pixel-level activations). On the H100 both become one CUDA op,
-`csrc/gn_conv.cu`. In bf16: the GroupNorm statistics
-(`csrc/gn_stats.cuh`), one normalize pass that writes
-`h = silu(x * scale + shift)` in bf16 to a scratch of x's shape, and an
+`csrc/gn_conv.cu`. In bf16: the fused GroupNorm's own launch
+(`csrc/gn_stats.cuh`, planned by `fused_groupnorm.gn_plan`: one cluster
+launch with the rows resident, or the streaming statistics and an apply
+pass at the VAE's pixel levels) writes `h = silu(GN(x + add))` in bf16 to a
+scratch of x's shape, then an
 implicit-GEMM conv over h on Hopper's tensor cores (TMA tiles, wgmma),
 split along K where the pixels are few (`conv_plan`), the split partials
-added in a fixed order by a second pass. In fp32 (parity mode): a SIMT conv
-that normalizes on the way into shared memory.
+added in a fixed order by a second pass. In fp32 (parity mode): the
+streaming statistics, then a SIMT conv that normalizes on the way into
+shared memory.
 
 Every resnet `GN -> SiLU -> conv3x3` chain of the UNet and the VAE goes
 through `gn_silu_conv3x3`, whatever its size: the JAX package's gates
@@ -46,9 +49,12 @@ from torch.autograd.function import once_differentiable
 
 from imagdressing_tpu_torch.kernels import _build
 from imagdressing_tpu_torch.kernels.fused_groupnorm import (
+    MAX_BATCH,
+    arrival_counts,
+    gn_plan,
     group_norm_act_reference,
     scale_shift,
-    stats_chunks,
+    stream_plan,
     vjp_of_reference,
 )
 
@@ -169,13 +175,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _lib() -> ctypes.CDLL:
     """The built library with its functions typed, once per process."""
     lib = _build.load(_SOURCE)
-    lib.gn_silu_conv3x3_bf16.argtypes = [_P] * 12 + [_I] * 6 + [_F] + \
-        [_I] * 5 + [_P]
-    lib.gn_silu_conv3x3_f32.argtypes = [_P] * 10 + [_I] * 6 + [_F, _I, _I,
-                                                               _P]
-    lib.gn_silu_normalize_bf16.argtypes = [_P] * 4 + [_I] * 3 + [_P]
-    for fn in (lib.gn_silu_conv3x3_bf16, lib.gn_silu_conv3x3_f32,
-               lib.gn_silu_normalize_bf16):
+    lib.gn_silu_conv3x3_bf16.argtypes = [_P] * 11 + [_I] * 6 + [_F] + \
+        [_I] * 10 + [_P]
+    lib.gn_silu_conv3x3_f32.argtypes = [_P] * 9 + [_I] * 6 + [_F] + \
+        [_I] * 3 + [_P]
+    for fn in (lib.gn_silu_conv3x3_bf16, lib.gn_silu_conv3x3_f32):
         fn.restype = _I
     return lib
 
@@ -265,58 +269,41 @@ def _launch(x, gamma, beta, weight, bias, add, num_groups, eps):
         addc = add.contiguous().to(x.dtype)
     _build.check_operands("gn_silu_conv3x3", x, wt, *params,
                           *([addc] if addc is not None else []))
-    nchunks, per = stats_chunks(b, h * w)
+    if b > MAX_BATCH:
+        raise ValueError(f"gn_silu_conv3x3: batch {b} > {MAX_BATCH}")
     out = torch.empty((b, h, w, cout), device=x.device, dtype=x.dtype)
     bf = x.dtype == torch.bfloat16
     plan = conv_plan(b, h, w, cin, cout) if bf else None
-    # One fp32 workspace, carved by offset: the statistics partials
-    # (b, nchunks, cin, 2), scale and shift (b, cin) each, and in bf16 the
+    gn = gn_plan(b, h * w, cin, num_groups, x.dtype, "silu") if bf \
+        else stream_plan(b, h * w, cin)
+    # One fp32 workspace, carved by offset: the GroupNorm's streaming
+    # workspace (none when its plan is resident), and in bf16 the
     # normalized activation h (x's shape, bf16) and, with split K, the
     # conv's partials (splits, M, cout). Every piece starts 16-byte aligned
     # (cin and cout are multiples of 8).
-    n_part, n_ss = b * nchunks * cin * 2, b * cin
+    n_gn = gn.workspace_floats(b, cin)
     n_h = x.numel() // 2 if bf else 0
     n_kpart = plan.splits * b * h * w * cout if bf and plan.splits > 1 \
         else 0
-    ws = torch.empty(n_part + 2 * n_ss + n_h + n_kpart, device=x.device,
+    ws = torch.empty(n_gn + n_h + n_kpart, device=x.device,
                      dtype=torch.float32)
     base = ws.data_ptr()
-    scale_p = base + 4 * n_part
-    shift_p = scale_p + 4 * n_ss
-    h_p = shift_p + 4 * n_ss
+    gn_p = base if n_gn else None
+    h_p = base + 4 * n_gn
     kpart_p = h_p + 4 * n_h if n_kpart else None
     stream = _build.stream_handle(x.device)
     common = (x.data_ptr(), addc.data_ptr() if addc is not None else None,
               params[0].data_ptr(), params[1].data_ptr(), wt.data_ptr(),
-              params[2].data_ptr(), out.data_ptr(), base, scale_p, shift_p)
+              params[2].data_ptr(), out.data_ptr(), gn_p,
+              arrival_counts(x.device).data_ptr())
     if bf:
         rc = _lib().gn_silu_conv3x3_bf16(
             *common, h_p, kpart_p, b, h, w, cin, cout, num_groups, eps,
-            nchunks, per, plan.tw, plan.bn, plan.splits, stream)
+            *gn.c_args(), plan.tw, plan.bn, plan.splits, stream)
     else:
-        rc = _lib().gn_silu_conv3x3_f32(*common, b, h, w, cin, cout,
-                                        num_groups, eps, nchunks, per,
-                                        stream)
+        rc = _lib().gn_silu_conv3x3_f32(
+            *common, b, h, w, cin, cout, num_groups, eps, gn.cs,
+            gn.nclusters, gn.rows_per_block, stream)
     _build.check(rc, "gn_silu_conv3x3")
     COUNTER.add((b, h, w, cin, cout))
-    return out
-
-
-def gn_silu_normalize(x: torch.Tensor, scale: torch.Tensor,
-                      shift: torch.Tensor) -> torch.Tensor:
-    """The bf16 op's normalize pass alone, `silu(x * scale + shift)` rounded
-    to bf16 (x (B, H, W, C) bf16 on the card, scale/shift (B, C) fp32): for
-    timing it apart. Not counted as a launch of the op."""
-    if x.device.type != "cuda" or x.dtype != torch.bfloat16 \
-            or not x.is_contiguous() or x.shape[-1] % 8:
-        raise ValueError("gn_silu_normalize: contiguous bf16 NHWC on the "
-                         "card, C a multiple of 8")
-    scale, shift = (t.float().contiguous() for t in (scale, shift))
-    _build.check_operands("gn_silu_normalize", x, scale, shift)
-    b, c = x.shape[0], x.shape[-1]
-    out = torch.empty_like(x)
-    rc = _lib().gn_silu_normalize_bf16(
-        x.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(), b,
-        x.numel() // (b * c), c, _build.stream_handle(x.device))
-    _build.check(rc, "gn_silu_normalize")
     return out

@@ -5,14 +5,16 @@ counterpart of `imagdressing_tpu/tools/profile_infer.py`, with
 Random bf16 weights at full SD1.5 width (the FLOPs and bytes of real
 checkpoints). One warm call, then one call under the profiler. Prints one
 JSON object: wall time, per-stage wall times, the device's busy share of
-the wall window, device time by kernel class and by kernel, and, for the
-two kernels with many shapes (K1, K2), each shape's launches in that call,
+the wall window, device time and launches by kernel class, device time by
+kernel, and, for the kernels with many shapes (K1, K2, K3), each shape's
+launches in that call,
 its device time (CUDA-graph replays of the call: the deep UNet shapes take
 less device time than host time), achieved TFLOP/s and bound (the largest
 of tensor FLOPs over 989 TFLOP/s, bytes over 3.35 TB/s and, for K1, one
 exp2 per (q, k) pair and source run over the special-function units), and
-the plan: K2's pixel tile, N width and K splits, K1's rows, keys per tile
-and ring depth.
+the plan: K2's pixel tile, N width and K splits and its GroupNorm
+prologue's mode, cluster and slab, K1's rows, keys per tile and ring depth,
+K3's mode, cluster and slab.
 
 Usage (on the card's machine, from the repository root):
     python -m imagdressing_tpu_torch.tools.profile_infer [WxH] [steps]
@@ -22,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import sys
 import time
 from collections import defaultdict
@@ -35,8 +38,10 @@ CLASSES = (
     ("K1 flash_fwd_f32", ("flash_fwd_f32",)),
     ("K2 split-K reduce", ("splitk_reduce",)),
     ("K2 conv (wgmma; fp32 SIMT)", ("gn_conv3x3",)),
-    ("GN statistics (K2, K3)", ("gn_partial_sums", "gn_finalize")),
-    ("GN normalize (K2's h, K3's output)", ("gn_apply",)),
+    ("GN statistics + normalize, resident (K3, K2's prologue)",
+     ("gn_resident",)),
+    ("GN statistics, streaming (VAE pixel levels)", ("gn_stream_stats",)),
+    ("GN normalize, streaming", ("gn_apply",)),
     ("cuDNN convolution", ("fprop", "conv", "winograd")),
     ("cuBLAS GEMM", ("gemm", "nvjet", "cutlass", "cublas")),
 )
@@ -84,11 +89,44 @@ def _conv_bytes(b, h, w, cin, co):
 
 
 def _conv_plan(b, h, w, cin, co):
+    import torch
+
     from imagdressing_tpu_torch.kernels.fused_gn_conv import conv_plan
+    from imagdressing_tpu_torch.kernels.fused_groupnorm import gn_plan
 
     p = conv_plan(b, h, w, cin, co)
+    g = gn_plan(b, h * w, cin, 32, torch.bfloat16, "silu")
     return dict(plan=dict(tw=p.tw, th=p.th, bn=p.bn, splits=p.splits,
-                          blocks=p.blocks))
+                          blocks=p.blocks),
+                gn_plan=dict(resident=g.resident, cs=g.cs, sw=g.sw,
+                             blocks=g.blocks))
+
+
+def _gn_bytes(shape, act):
+    # bf16 x read and y written, each once
+    return 4.0 * math.prod(shape)
+
+
+def _gn_plan(shape, act):
+    import torch
+
+    from imagdressing_tpu_torch.kernels.fused_groupnorm import gn_plan
+
+    b, c = shape[0], shape[-1]
+    g = gn_plan(b, math.prod(shape) // (b * c), c, 32, torch.bfloat16, act)
+    return dict(plan=dict(resident=g.resident, cs=g.cs, sw=g.sw,
+                          blocks=g.blocks))
+
+
+def _gn_call(shape, act):
+    import torch
+
+    from imagdressing_tpu_torch.kernels.fused_groupnorm import group_norm_act
+
+    x = torch.randn(shape, device="cuda", dtype=torch.bfloat16)
+    w, b = (torch.randn(shape[-1], device="cuda", dtype=torch.bfloat16)
+            for _ in range(2))
+    return lambda: group_norm_act(x, w, b, num_groups=32, eps=1e-6, act=act)
 
 
 def _flash_bytes(b, s, h, d, dual):
@@ -149,6 +187,7 @@ def main(size: str = "512x640", steps: int = 30) -> dict:
     from imagdressing_tpu_torch.core.config import PRESETS
     from imagdressing_tpu_torch.kernels import flash_attention as fa
     from imagdressing_tpu_torch.kernels import fused_gn_conv as fgc
+    from imagdressing_tpu_torch.kernels import fused_groupnorm as fg
     from imagdressing_tpu_torch.pipelines.dressing import (
         DressingModels,
         DressingPipeline,
@@ -166,20 +205,22 @@ def main(size: str = "512x640", steps: int = 30) -> dict:
               ref_clip_image=rng.standard_normal((1, 224, 224, 3)),
               output_uint8=True)
     pipe(**kw)  # warm: kernel build, library handles, allocator
-    fa.COUNTER.reset()
-    fgc.COUNTER.reset()
+    for counter in (fa.COUNTER, fgc.COUNTER, fg.COUNTER):
+        counter.reset()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         pipe(**kw)
         wall = time.perf_counter() - t0
     by_kernel = {}
     by_class = defaultdict(float)
+    class_launches = defaultdict(int)
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0.0)
         if us <= 0:
             continue
         by_kernel[e.key] = (us / 1e3, e.count)
         by_class[classify(e.key)] += us / 1e3
+        class_launches[classify(e.key)] += e.count
     device_ms = sum(by_class.values())
     if device_ms <= 0:
         raise RuntimeError("the profiler recorded no device time")
@@ -190,6 +231,7 @@ def main(size: str = "512x640", steps: int = 30) -> dict:
         device_busy_share=device_ms / (wall * 1e3),
         stage_ms={k: v * 1e3 for k, v in pipe.last_stage_seconds.items()},
         class_ms=dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
+        class_launches=dict(class_launches),
         top_kernels=[dict(name=k[:120], ms=ms, calls=n)
                      for k, (ms, n) in top],
         gn_conv_shapes=_shape_rows(
@@ -197,7 +239,9 @@ def main(size: str = "512x640", steps: int = 30) -> dict:
             lambda b, h, w, cin, co: 2.0 * b * h * w * 9 * cin * co,
             _conv_bytes, _conv_plan),
         flash_shapes=_shape_rows(fa.COUNTER, _flash_call, _flash_flops,
-                                 _flash_bytes, _flash_plan, _flash_exp2))
+                                 _flash_bytes, _flash_plan, _flash_exp2),
+        group_norm_shapes=_shape_rows(fg.COUNTER, _gn_call,
+                                      lambda *k: 0.0, _gn_bytes, _gn_plan))
     print(json.dumps(result), flush=True)
     return result
 

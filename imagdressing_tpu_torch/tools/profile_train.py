@@ -5,8 +5,9 @@ Random weights at full SD1.5 width (the FLOPs and bytes of real
 checkpoints): bf16 frozen models, fp32 master weights of the trainables,
 block remat, batch 1. Two warm steps (the first has learning rate 0), then
 one step under the profiler. Prints one JSON object: the step's wall time,
-the device's busy share of it, device time by kernel class (the port's
-kernels by name, cuDNN, cuBLAS, the rest) and the costliest kernels.
+the device's busy share of it, device time and launches by kernel class
+(the port's kernels by name, cuDNN, cuBLAS, the rest) and the costliest
+kernels.
 
 Usage (on the card's machine, from the repository root):
     python -m imagdressing_tpu_torch.tools.profile_train [WxH] [batch]
@@ -72,12 +73,14 @@ def main(size: str = "512x640", batch: int = 1) -> dict:
         wall = time.perf_counter() - t0
     by_kernel = {}
     by_class = defaultdict(float)
+    class_launches = defaultdict(int)
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0.0)
         if us <= 0:
             continue
         by_kernel[e.key] = (us / 1e3, e.count)
         by_class[classify_train(e.key)] += us / 1e3
+        class_launches[classify_train(e.key)] += e.count
     device_ms = sum(by_class.values())
     if device_ms <= 0:
         raise RuntimeError("the profiler recorded no device time")
@@ -87,6 +90,7 @@ def main(size: str = "512x640", batch: int = 1) -> dict:
         loss=loss, wall_ms=wall * 1e3, device_ms=device_ms,
         device_busy_share=device_ms / (wall * 1e3),
         class_ms=dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
+        class_launches=dict(class_launches),
         top_kernels=[dict(name=k[:120], ms=ms, calls=n)
                      for k, (ms, n) in top])
     print(json.dumps(result), flush=True)

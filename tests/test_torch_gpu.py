@@ -191,16 +191,55 @@ def test_gn_conv_split_k_is_deterministic(cuda):
     assert torch.equal(first, second)
 
 
+# K3's shapes: the four UNet levels of a CFG step (batch 2) and of the
+# garment pass (batch 1), a ragged shape whose rows fit no box and whose
+# groups are 5 channels wide, and a VAE pixel level that fits no cluster
+# (streaming mode); (B, M, C, groups, resident)
+GN_SHAPES = [(2, 5120, 320, 32, True), (2, 1280, 640, 32, True),
+             (2, 320, 1280, 32, True), (2, 80, 1280, 32, True),
+             (1, 5120, 320, 32, True), (1, 1280, 640, 32, True),
+             (1, 320, 1280, 32, True), (1, 80, 1280, 32, True),
+             (1, 77, 40, 8, True), (1, 327680, 128, 32, False)]
+
+
+def _gn_args(seed, b, m, c, groups, with_add, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = _randn(gen, (b, m, c), dtype)
+    w, bb = 1 + _randn(gen, (c,), dtype, 0.1), _randn(gen, (c,), dtype, 0.1)
+    t = _randn(gen, (b, c), dtype) if with_add else None
+    # with add: the GN+conv prologue's function (temb folded, SiLU)
+    kw = dict(num_groups=groups, eps=1e-5 if with_add else 1e-6,
+              act="silu" if with_add else "none", add=t)
+    return (x, w, bb), kw
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_group_norm_kernel_matches_plain(cuda, dtype):
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    x = _randn(gen, (2, 5120, 320), dtype)
-    w, b = _randn(gen, (320,), dtype), _randn(gen, (320,), dtype)
-    got = fg.group_norm_act(x, w, b, num_groups=32, eps=1e-6, act="none")
-    want = fg.group_norm_act_plain(x, w, b, num_groups=32, eps=1e-6,
-                                   act="none")
+@pytest.mark.parametrize("with_add", [False, True])
+@pytest.mark.parametrize("b,m,c,groups,resident", GN_SHAPES)
+def test_group_norm_kernel_matches_plain(cuda, b, m, c, groups, resident,
+                                         with_add, dtype):
+    """K3 in the mode its plan documents, one launch counted, against the
+    plain version."""
+    args, kw = _gn_args(2, b, m, c, groups, with_add, dtype)
+    assert fg.gn_plan(b, m, c, groups, dtype, kw["act"]).resident == resident
+    n0 = fg.COUNTER.count
+    got = fg.group_norm_act(*args, **kw)
+    want = fg.group_norm_act_plain(*args, **kw)
     torch.cuda.synchronize()
+    assert fg.COUNTER.count == n0 + 1
+    assert got.shape == want.shape and got.dtype == dtype
     _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("b,m,c", [(2, 5120, 320), (1, 327680, 128)])
+def test_group_norm_is_deterministic(cuda, b, m, c):
+    """Resident and streaming: the cluster's partials and the clusters'
+    partials are added in a fixed order, so repeats give the same bits."""
+    args, kw = _gn_args(3, b, m, c, 32, True, torch.bfloat16)
+    first = fg.group_norm_act(*args, **kw)
+    second = fg.group_norm_act(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_full_width_pipeline_runs_through_the_kernels(cuda):

@@ -27,6 +27,7 @@ from imagdressing_tpu_torch.kernels.flash_attention import (
 from imagdressing_tpu_torch.core.config import UNetConfig, VAEConfig
 from imagdressing_tpu_torch.kernels import flash_attention as tfa
 from imagdressing_tpu_torch.kernels import fused_gn_conv as fgc
+from imagdressing_tpu_torch.kernels import fused_groupnorm as fg
 from imagdressing_tpu_torch.kernels.fused_gn_conv import gn_silu_conv3x3
 from imagdressing_tpu_torch.kernels.fused_groupnorm import group_norm_act
 
@@ -436,6 +437,70 @@ def test_conv_plan_keeps_the_kernel_limits():
         assert p.ntiles * p.bn >= co > (p.ntiles - 1) * p.bn, what
         if b * h * w <= 640:
             assert p.blocks >= fgc.SMS, what
+
+
+def _full_width_group_norm_shapes():
+    """(b, m, c, act) of every GroupNorm of the full-width `basic` path and
+    training step at 512x640 and of the VAE's encode and decode: K3 at each
+    UNet level (transformer in-norms, act none; conv_norm_out, silu) at
+    batch 1 and 2, and the GN+SiLU prologue of every GN+conv (K2, K4)."""
+    u = UNetConfig()
+    shapes = {(b, (80 >> lvl) * (64 >> lvl), ch, "none")
+              for b in (1, 2) for lvl, ch in enumerate(u.block_out_channels)}
+    shapes |= {(b, 80 * 64, u.block_out_channels[0], "silu") for b in (1, 2)}
+    shapes |= {(b, h * w, cin, "silu")
+               for b, h, w, cin, _ in _full_width_gn_conv_shapes()}
+    return sorted(shapes)
+
+
+def test_gn_plan_keeps_the_kernel_limits():
+    """The GroupNorm plan (K3, and the K2/K4 prologue) for every GroupNorm
+    shape of the full-width paths, bf16 and fp32: resident slabs of whole
+    groups, a multiple of 16 bytes wide and at least MIN_SEGMENT_BYTES, TMA
+    boxes of at most 256 rows landing 128-byte aligned, every block with
+    rows and every row in a block, clusters of at most 8 (no non-portable
+    attribute), shared memory within the 227 KB a block may use; streaming
+    exactly where no resident plan fits (the VAE's pixel levels), its
+    clusters covering every row; the fp32 GN+conv's streaming statistics
+    within the same limits."""
+    shapes = _full_width_group_norm_shapes()
+    assert (2, 5120, 320, "none") in shapes and (1, 327680, 256, "silu") \
+        in shapes and (2, 80, 1280, "none") in shapes
+    modes = {}
+    for b, m, c, act in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            item = dtype.itemsize
+            p = fg.gn_plan(b, m, c, 32, dtype, act)
+            what = (b, m, c, act, dtype, p)
+            assert 1 <= p.cs <= fg.MAX_CLUSTER <= 8, what
+            assert p.smem <= fg.SMEM_LIMIT, what
+            fits = list(fg._resident_plans(b, m, c, 32, item, act))
+            assert p.resident == bool(fits), what
+            if p.resident:
+                assert p.sw % (c // 32) == 0 and c % p.sw == 0, what
+                assert p.sw * item % 16 == 0, what
+                assert fg.MIN_SEGMENT_BYTES <= p.sw * item, what
+                assert p.sw <= fg.MAX_SLAB and p.box_rows <= fg.BOX_ROWS, what
+                assert p.box_rows * p.sw * item % 128 == 0, what
+                assert 1 <= p.nboxes <= fg.MAX_BOXES, what
+                assert (p.cs - 1) * p.rpb < m <= p.cs * p.rpb, what
+                assert p.blocks == b * (c // p.sw) * p.cs, what
+                assert p.smem == fg.resident_smem(p.rpb, p.sw, item), what
+                assert p.workspace_floats(b, c) == 0, what
+            else:
+                assert p.nclusters * p.cs * p.rows_per_block >= m, what
+                assert (p.nclusters - 1) * p.cs * p.rows_per_block < m, what
+                assert p.workspace_floats(b, c) == \
+                    2 * b * p.nclusters * c + 2 * b * c, what
+            modes[(b, m, c, act, item)] = p.resident
+            s = fg.stream_plan(b, m, c)  # the fp32 GN+conv's statistics
+            assert not s.resident and s.smem <= fg.SMEM_LIMIT
+            assert s.nclusters * s.cs * s.rows_per_block >= m
+    # every bf16 UNet GroupNorm is one launch; the VAE's pixel levels stream
+    assert all(modes[(b, m, c, a, i)] for b, m, c, a, i in modes
+               if m <= 80 * 64 and c >= 320 and i == 2)
+    assert not modes[(1, 327680, 256, "silu", 2)]
+    assert not modes[(1, 327680, 128, "silu", 2)]
 
 
 # ---------------------------------------------------------------------------
