@@ -7,7 +7,8 @@ Phases, each printing one line:
      csrc` with one nvcc per source, all at once;
   3. check: every kernel against its plain PyTorch version on the card, in
      bf16 and fp32, at the main paths' shapes: the inference kernels (K1
-     also at ragged lengths), the training forward with residuals and both
+     also at ragged lengths and with 2S keys, K1-K3 also at the inpaint
+     preset's 512x512 levels), the training forward with residuals and both
      backward kernels (with K6b's D_i, and at ragged lengths), the GN+conv
      at the deep UNet levels (split K) and at a ragged shape, and the
      gradients of the GN+conv and GroupNorm autograd Functions, K3 at the
@@ -17,7 +18,9 @@ Phases, each printing one line:
      (resident and streaming) twice on the same inputs must give
      bit-identical results;
   4. mini: a small fp32 stack run end to end on the card and on the CPU (the
-     CPU runs every kernel's plain version): the outputs must agree;
+     CPU runs every kernel's plain version): the outputs must agree; then
+     mini_presets: the same with a perturbed ControlNet and IP adapters for
+     `pose`, `ipa_pose`, `inpaint` and `pose` with UniPC;
   5. mini_train: two training steps of the same small stack on the card and
      on the CPU with the same random draws: losses, gradient norms and the
      trained weights must agree;
@@ -34,6 +37,11 @@ Phases, each printing one line:
      full SD1.5 width, 512x640, bf16, 30 DDIM steps, with per-stage wall
      times, peak memory, and each kernel's launches in that run (K1's and
      K2's by shape);
+  7b. presets: `cartoon`, `pose`, `ipa_pose` (512x640) and `inpaint`
+     (512x512) the same way, one stack with a ControlNet (its zero convs
+     filled) and the IP adapters: per preset the launches of a counted run
+     against the count derived from the code, and probes (same seed, same
+     image; another pose, face or ControlNet scale, another image);
   8. train: the training step (`train.step`) at full SD1.5 width, 512x640,
      batch 1, bf16 frozen models and fp32 master weights, block remat: one
      warm step, then TRAIN_STEPS timed steps with s/step, peak memory, the
@@ -483,7 +491,12 @@ GN_CONV_SHAPES = [(2, 80, 64, 320, 320, True), (2, 20, 16, 2560, 1280, True),
                   (2, 20, 16, 1280, 1280, True),
                   (1, 10, 8, 1280, 1280, True), (2, 80, 64, 960, 320, True),
                   (1, 640, 512, 256, 128, False),
-                  (1, 160, 128, 512, 512, False), (1, 9, 13, 40, 24, False)]
+                  (1, 160, 128, 512, 512, False), (1, 9, 13, 40, 24, False),
+                  # the inpaint preset at 512x512: the top latent level, the
+                  # deep levels at 8x8 (64 pixels, split K), a decoder pixel
+                  # level
+                  (2, 64, 64, 320, 320, True), (2, 8, 8, 1280, 1280, True),
+                  (2, 8, 8, 2560, 1280, True), (1, 512, 512, 256, 128, False)]
 # the deep UNet shapes K2 is also timed at: 330, 180 and 90 launches per
 # `basic` image (M = 160, 640 and 160 pixels)
 K2_DEEP_TIMED = ["2x10x8x1280->1280+add", "2x20x16x1280->1280+add",
@@ -506,7 +519,12 @@ GN_CASES = [((2, 5120, 320), "none", 32, False),
             ((2, 80, 64, 320), "silu", 32, False),
             ((2, 5120, 320), "silu", 32, True),
             ((1, 77, 40), "none", 8, False),
-            ((1, 327680, 128), "silu", 32, True)]
+            ((1, 327680, 128), "silu", 32, True),
+            # the inpaint preset's UNet and ControlNet levels at 512x512
+            ((2, 4096, 320), "none", 32, False),
+            ((2, 1024, 640), "none", 32, False),
+            ((2, 256, 1280), "none", 32, False),
+            ((2, 64, 1280), "none", 32, False)]
 K3_TIMED = [group_norm_label(*a) for a in GN_CASES[:4]]
 
 
@@ -520,13 +538,25 @@ TRAIN_FLASH_SHAPES = [(1, 5120, 8, 40), (1, 1280, 8, 80), (1, 320, 8, 160),
 def check_cases():
     """(kernel name, shape label, case factory(dtype, seed))."""
     cases = []
+    # the four UNet levels at 512x640 and at the inpaint preset's 512x512
+    # (the ControlNet's trunk runs the same shapes), the VAE's mid attention
+    # at both sizes
     for b, s, h, d, dual in [(2, 5120, 8, 40, True), (2, 1280, 8, 80, True),
                              (2, 320, 8, 160, True), (2, 80, 8, 160, True),
-                             (1, 5120, 1, 512, False)]:
+                             (1, 5120, 1, 512, False),
+                             (2, 4096, 8, 40, True), (2, 1024, 8, 80, True),
+                             (2, 256, 8, 160, True), (2, 64, 8, 160, True),
+                             (1, 4096, 1, 512, False)]:
         cases.append(("flash_fwd", f"{b}x{s}x{h}x{d}" + ("dual" if dual
                                                           else ""),
                       lambda dt, sd, a=(b, s, h, d, dual):
                       flash_case(*a, dt, sd)))
+    # single source with 2S keys: the `concat` garment self-attention
+    for s, d in [(5120, 40), (320, 160)]:
+        cases.append(("flash_fwd", f"2x{s}/{2 * s}x8x{d}",
+                      lambda dt, sd, s=s, d=d:
+                      flash_case(2, s, 8, d, False, dt, sd,
+                                 lengths=(s, 2 * s, 0))))
     # K1 at ragged lengths (Sq, Skv, Sref): zero-filled tails of the q and
     # key tiles and of the D padding at D = 40, masked keys, scale [0, 0.7]
     for (sq, skv, sref), d in [((100, 100, 37), 40), ((80, 77, 130), 40),
@@ -879,6 +909,84 @@ def mini_models():
     return DressingModels(**cfgs, **mods)
 
 
+def mini_preset_models():
+    """The mini stack with a ControlNet and the IP adapters + ProjPlus, drawn
+    from the same CPU generator after the mini stack's own; every ControlNet
+    leaf perturbed by 0.05 * N(0, 1) (its output convs start at zero)."""
+    import torch
+
+    from imagdressing_tpu_torch.core.config import (
+        ControlNetConfig,
+        ProjPlusConfig,
+    )
+    from imagdressing_tpu_torch.models.controlnet import ControlNet
+    from imagdressing_tpu_torch.models.resampler import ProjPlus
+    from imagdressing_tpu_torch.models.unet import IPAdapters
+    from imagdressing_tpu_torch.ops.nn import init_module
+
+    models = mini_models()
+    ucfg = models.unet_cfg
+    models.controlnet_cfg = ControlNetConfig(unet=ucfg)
+    models.projplus_cfg = ProjPlusConfig(
+        cross_attention_dim=32, id_embeddings_dim=16, clip_embeddings_dim=48,
+        num_tokens=4, depth=1, dim_head=8)
+    models.controlnet = ControlNet(models.controlnet_cfg)
+    models.ip_adapters = IPAdapters(ucfg)
+    models.proj_plus = ProjPlus(models.projplus_cfg)
+    gen = torch.Generator().manual_seed(1)
+    for name in ("controlnet", "ip_adapters", "proj_plus"):
+        m = getattr(models, name)
+        init_module(m, gen)
+        m.eval().requires_grad_(False)
+    with torch.no_grad():
+        for prm in models.controlnet.parameters():
+            prm.add_(0.05 * torch.randn(prm.shape, generator=gen))
+    return models
+
+
+# (preset, preset overrides) of the mini card-vs-CPU runs
+MINI_PRESETS = [("pose", {}), ("ipa_pose", {}),
+                ("inpaint", {"strength": 0.99}),
+                ("pose", {"sampler": "unipc"})]
+
+
+def phase_mini_presets():
+    """The mini preset stack on the card and on the CPU: `pose`,
+    `ipa_pose`, `inpaint` (strength 0.99) and `pose` with UniPC, 64x64, 4
+    steps; each output within 1e-3, as `phase_mini`."""
+    import numpy as np
+    import torch
+
+    from imagdressing_tpu_torch.core.config import PRESETS
+    from imagdressing_tpu_torch.pipelines.dressing import DressingPipeline
+    from imagdressing_tpu_torch.tools.profile_infer import preset_inputs
+
+    cpu = mini_preset_models()
+    gpu = copy.deepcopy(cpu)
+    for m in gpu.modules().values():
+        m.to("cuda")
+    kwargs = preset_inputs(1, 64, 64, 56, 16, 256, 8)
+    kwargs["latents"] = np.random.default_rng(9).standard_normal((1, 8, 8, 4))
+    tol = 1e-3
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, over in MINI_PRESETS:
+            preset = dataclasses.replace(PRESETS[name], height=64, width=64,
+                                         num_inference_steps=4, **over)
+            want = DressingPipeline(cpu, preset, device="cpu")(**kwargs)
+            got = DressingPipeline(gpu, preset)(**kwargs)
+            err = float(np.abs(got - want).max())
+            ok = bool(np.isfinite(got).all()) and err <= tol
+            emit("mini_presets", preset=name, sampler=preset.sampler,
+                 strength=preset.strength, max_abs_err=err, tol=tol, ok=ok)
+            if not ok:
+                raise SmokeFailure(f"mini {name} {preset.sampler}: card vs "
+                                   f"CPU max abs err {err:.4g}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
 def phase_mini():
     import numpy as np
     import torch
@@ -1066,6 +1174,124 @@ def phase_main(counters):
     if zero:
         raise SmokeFailure(f"kernels never launched on the main path: {zero}")
     return counts
+
+
+def expected_launches(steps, controlnet, encodes):
+    """K1, K2 (every shape) and K3 launches of one full-width image, from
+    the code: per CFG step the main UNet's 16 self-attentions, 22 resnets
+    (two GN+convs each) and 16 transformer in-norms + conv_norm_out, and the
+    ControlNet's trunk 7, 10 and 7 (no conv_norm_out); the garment UNet's
+    capture pass once; each VAE encode one mid attention and 10 resnets,
+    the decode one and 14."""
+    cn = 1 if controlnet else 0
+    return {"flash_fwd": steps * (16 + 7 * cn) + 16 + encodes + 1,
+            "gn_silu_conv3x3": steps * (44 + 20 * cn) + 44 + 20 * encodes
+            + 28,
+            "group_norm_act": steps * (17 + 7 * cn) + 17}
+
+
+# the presets at full width (cartoon is basic's graph), in the order run
+FULL_PRESETS = ("cartoon", "pose", "ipa_pose", "inpaint")
+
+
+def phase_presets(counters, basic):
+    """`cartoon`, `pose`, `ipa_pose` and `inpaint` at full SD1.5 width and
+    their preset sizes, bf16, STEPS steps, one `DressingModels` with the
+    ControlNet (its zero-initialised output convs filled with random values)
+    and the IP adapters: per preset a warm float run, then the counted uint8
+    run (counts reset just before, read just after), and the probes: the
+    same seed gives the same image; another pose, another face embedding,
+    ControlNet scale 0 each give another; every launch count equals
+    `expected_launches`, cartoon's equal `basic`'s, pose - cartoon = STEPS x
+    (K1 7, K2 20, K3 7), ipa_pose's equal pose's shape by shape."""
+    import numpy as np
+    import torch
+
+    from imagdressing_tpu_torch.core.config import PRESETS
+    from imagdressing_tpu_torch.pipelines.dressing import (
+        DressingModels,
+        DressingPipeline,
+    )
+    from imagdressing_tpu_torch.tools.profile_infer import (
+        fill_zero_convs,
+        preset_inputs,
+    )
+
+    t0 = time.perf_counter()
+    models = DressingModels.init_random(0, with_controlnet=True,
+                                        with_ipa=True)
+    fill_zero_convs(models.controlnet)
+    models.cast(torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    runs = {}
+    for name in FULL_PRESETS:
+        preset = dataclasses.replace(PRESETS[name], num_inference_steps=STEPS)
+        pipe = DressingPipeline(models, preset)
+        h, w = preset.height, preset.width
+        inputs = dict(preset_inputs(1, h, w), seed=42)
+        t0 = time.perf_counter()
+        image = pipe(**inputs)
+        first_s = time.perf_counter() - t0
+        if image.shape != (1, h, w, 3) or not np.isfinite(image).all() \
+                or image.std() == 0:
+            raise SmokeFailure(f"{name}: output {image.shape}, not finite "
+                               "or constant")
+        for c in counters.values():
+            c.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = pipe(output_uint8=True, **inputs)
+        total_s = time.perf_counter() - t0
+        by_shape = {k: dict(c.by_shape) for k, c in counters.items()}
+        launches = {k: c.count for k, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        stages = dict(pipe.last_stage_seconds)
+        if not np.array_equal(out, np.round(image * 255).astype(np.uint8)):
+            raise SmokeFailure(f"{name}: the same seed gave another image")
+        probes = {}
+        if name == "pose":
+            probes["other_pose"] = dict(
+                inputs, pose_image=1.0 - inputs["pose_image"])
+            probes["controlnet_scale_0"] = dict(inputs, controlnet_scale=0.0)
+        if name == "ipa_pose":
+            probes["other_face"] = dict(
+                inputs, faceid_embeds=-inputs["faceid_embeds"])
+        moved = {}
+        for probe, kw in probes.items():
+            moved[probe] = bool(np.abs(pipe(output_uint8=True, **kw)
+                                       .astype(np.int16) - out).max() > 0)
+        used = STEPS - max(STEPS - int(STEPS * preset.strength), 0) \
+            if preset.use_inpaint else STEPS
+        want = expected_launches(used, preset.use_controlnet,
+                                 2 if preset.use_inpaint else 1)
+        runs[name] = dict(launches=launches, by_shape=by_shape)
+        emit("presets", preset=name, steps=STEPS, used_steps=used,
+             size=f"{w}x{h}", sampler=preset.sampler, init_s=init_s,
+             first_call_s=first_s, total_s=total_s, stage_s=stages,
+             peak_gib=peak / 2**30, launches=launches,
+             expected_launches=want, probes_differ=moved,
+             launches_by_shape={k: {str(s): n for s, n in v.items()}
+                                for k, v in by_shape.items()})
+        if launches != want:
+            raise SmokeFailure(f"{name}: launches {launches} != {want}")
+        if not all(moved.values()):
+            raise SmokeFailure(f"{name}: a probe left the image unchanged: "
+                               f"{moved}")
+    if runs["cartoon"]["launches"] != basic:
+        raise SmokeFailure(f"cartoon {runs['cartoon']['launches']} != basic "
+                           f"{basic}")
+    delta = {k: runs["pose"]["launches"][k] - runs["cartoon"]["launches"][k]
+             for k in counters}
+    want = {"flash_fwd": 7 * STEPS, "gn_silu_conv3x3": 20 * STEPS,
+            "group_norm_act": 7 * STEPS}
+    emit("presets_delta", pose_minus_cartoon=delta, want=want,
+         ipa_pose_equals_pose=runs["ipa_pose"] == runs["pose"])
+    if delta != want:
+        raise SmokeFailure(f"pose - cartoon launches {delta} != {want}")
+    if runs["ipa_pose"] != runs["pose"]:
+        raise SmokeFailure("ipa_pose launched other kernels than pose")
+    return {name: r["launches"] for name, r in runs.items()}
 
 
 def _sums(modules):
@@ -1300,12 +1526,18 @@ def main() -> int:
         errs = phase_check()
         phase_determinism()
         phase_mini()
+        phase_mini_presets()
         phase_mini_train()
         phase_parse_check()
         timings = phase_time()
-        counts = phase_main({"flash_fwd": fa.COUNTER,
-                             "gn_silu_conv3x3": fgc.COUNTER,
-                             "group_norm_act": fg.COUNTER})
+        inference = {"flash_fwd": fa.COUNTER, "gn_silu_conv3x3": fgc.COUNTER,
+                     "group_norm_act": fg.COUNTER}
+        counts = phase_main(inference)
+        phase_presets(inference, {
+            "flash_fwd": counts["flash_fwd"],
+            "gn_silu_conv3x3": counts["gn_silu_conv3x3"]
+            + counts["gn_silu_conv3x3[vae_pixel]"],
+            "group_norm_act": counts["group_norm_act"]})
         train = phase_train({"flash_fwd": fa.COUNTER,
                              "gn_silu_conv3x3": fgc.COUNTER,
                              "group_norm_act": fg.COUNTER,

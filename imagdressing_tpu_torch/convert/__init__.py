@@ -11,7 +11,8 @@ changes, once, here:
                                         port's channels_last parameters)
   * norm `scale`                     -> `weight`
   * `embedding`                      -> `weight`
-  * ref adapters keyed by layer name -> `unet.adapter_key(name)` modules
+  * ref and IP adapters keyed by layer name -> `unet.adapter_key(name)`
+                                        modules
 """
 
 from __future__ import annotations
@@ -74,10 +75,11 @@ def parsing_params_from_jax(atr_tree: Any, lip_tree: Any
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, StateDict]:
     """JAX `DressingModels.params` -> {model name: state dict}, with the
     model names of the JAX tree (unet, ref_unet, ref_adapters, resampler,
-    vae, text, vision)."""
+    vae, text, vision, and where present controlnet, ip_adapters,
+    proj_plus)."""
     out = {}
     for name, sub in tree.items():
-        if name == "ref_adapters":
+        if name in ("ref_adapters", "ip_adapters"):
             sub = {adapter_key(layer): p for layer, p in sub.items()}
         out[name] = state_dict_from_jax(sub)
     return out

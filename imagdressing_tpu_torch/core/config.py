@@ -101,6 +101,31 @@ class ResamplerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ProjPlusConfig:
+    """IP-Adapter-FaceID-Plus projector: the id embedding to `num_tokens`
+    face tokens, refined by a Perceiver over the face crop's CLIP-H states."""
+
+    cross_attention_dim: int = 768
+    id_embeddings_dim: int = 512
+    clip_embeddings_dim: int = 1280
+    num_tokens: int = 4
+    depth: int = 4
+    dim_head: int = 64
+    ff_mult: int = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class ControlNetConfig:
+    """SD1.5 ControlNet (the openpose and inpaint variants share it; both
+    take a 3-channel condition image, inpaint marks masked pixels with -1).
+    The trunk is the UNet's encoder half with `unet`'s architecture."""
+
+    conditioning_channels: int = 3
+    conditioning_embedding_channels: Tuple[int, ...] = (16, 32, 96, 256)
+    unet: UNetConfig = dataclasses.field(default_factory=UNetConfig)
+
+
+@dataclasses.dataclass(frozen=True)
 class SchedulerConfig:
     """DDIM schedule hyperparameters (inference defaults)."""
 
@@ -128,8 +153,13 @@ class DTypePolicy:
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """One preset == one reference entry script. The port runs `basic` only;
-    the fields of the other presets are kept so configs compare 1:1."""
+    """One preset == one reference entry script. `control_guidance_start` /
+    `_end` window the ControlNet per step (step i of n keeps its residuals
+    iff start <= i/n and (i+1)/n <= end); `eta` is the DDIM variance (0:
+    deterministic; the multistep samplers take none); `sampler` is "ddim",
+    "dpm2m" (DPM-Solver++(2M)) or "unipc"; `lora_scale` is folded into the
+    weights by whoever loads a LoRA checkpoint (`conditioning.fold_lora`),
+    not by the pipeline."""
 
     name: str = "basic"
     height: int = 640
@@ -154,7 +184,21 @@ class PipelineConfig:
 
 PRESETS = {
     "basic": PipelineConfig(name="basic"),
+    # the same graph as basic, another checkpoint
+    "cartoon": PipelineConfig(name="cartoon"),
+    # + the openpose ControlNet
+    "pose": PipelineConfig(name="pose", use_controlnet=True),
+    # + IP-Adapter-FaceID-Plus
+    "ipa_pose": PipelineConfig(name="ipa_pose", use_controlnet=True,
+                               use_ipa=True, guidance_scale=7.0,
+                               image_scale=0.9, ipa_scale=0.9,
+                               lora_scale=0.2),
+    # + the inpaint ControlNet and the mask recomposition
+    "inpaint": PipelineConfig(name="inpaint", use_controlnet=True,
+                              use_inpaint=True, height=512, width=512,
+                              guidance_scale=5.0, strength=0.99),
 }
+SAMPLERS = ("ddim", "dpm2m", "unipc")
 
 
 @dataclasses.dataclass(frozen=True)

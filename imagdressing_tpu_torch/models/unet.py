@@ -1,17 +1,23 @@
 """SD1.5-class UNet2DConditionModel in PyTorch, NHWC (port of
 `imagdressing_tpu/models/unet.py`).
 
-One module serves both roles: the main UNet (`forward(..., cond)` with
-dual-KV self-attention) and the garment UNet (`forward(..., capture=True)`,
-which also returns every self-attention layer's input). Module attribute
-names follow the JAX parameter tree, so `convert` maps one path to one
-state-dict key.
+One module serves three roles: the main UNet (`forward(..., cond)` with
+dual-KV self-attention, the IP-Adapter and garment-cross branches of the
+cross-attention and the ControlNet's residuals), the garment UNet
+(`forward(..., capture=True)`, which also returns every self-attention
+layer's input) and, built with `encoder_only=True`, the ControlNet's trunk
+(`forward(..., down_only=True)`: the skips, the mid output and temb). Module
+attribute names follow the JAX parameter tree, so `convert` maps one path to
+one state-dict key.
 
 Kernels on this path: every resnet GN+SiLU+conv3x3 (K2,
 `kernels/fused_gn_conv.py`), the transformer in-norm and `conv_norm_out`
 (K3, `kernels/fused_groupnorm.py`) and every self-attention (K1 for
 inference; K5 forward and K6a/K6b backward under autograd,
-`kernels/flash_attention.py`, through `ops/attention.py`).
+`kernels/flash_attention.py`, through `ops/attention.py`; the `concat`
+self-attention and the garment-cross branch run K1 single-source, the
+IP-Adapter branch over its few face tokens stays plain, as in the JAX
+package).
 
 Training: `forward(..., remat=True)` recomputes each resnet and each
 transformer block in the backward (`torch.utils.checkpoint`, non-reentrant),
@@ -60,6 +66,46 @@ def attn_layer_names(cfg: UNetConfig, which: str = "attn1") -> List[str]:
                              f".transformer_blocks.0.{which}.processor")
     names.append(f"mid_block.attentions.0.transformer_blocks.0.{which}.processor")
     return names
+
+
+def attn_layer_dims(cfg: UNetConfig) -> Dict[str, int]:
+    """{attention layer name: channels of its block}, attn1 and attn2."""
+    dims = {}
+    for which in ("attn1", "attn2"):
+        for name in attn_layer_names(cfg, which):
+            parts = name.split(".")
+            if parts[0] == "mid_block":
+                ch = cfg.block_out_channels[-1]
+            elif parts[0] == "down_blocks":
+                ch = cfg.block_out_channels[int(parts[1])]
+            else:
+                ch = tuple(reversed(cfg.block_out_channels))[int(parts[1])]
+            dims[name] = ch
+    return dims
+
+
+def skip_channels(cfg: UNetConfig) -> List[int]:
+    """Channels of each down-path skip, in the order the up path pops them
+    last-first (conv_in, then each resnet and downsampler)."""
+    chs = [cfg.block_out_channels[0]]
+    for i, c in enumerate(cfg.block_out_channels):
+        chs.extend([c] * cfg.layers_per_block)
+        if i != len(cfg.block_out_channels) - 1:
+            chs.append(c)
+    return chs
+
+
+def _add_scaled(out: torch.Tensor, extra: torch.Tensor,
+                scale: Union[float, torch.Tensor]) -> torch.Tensor:
+    """out + scale * extra summed in fp32, cast back to out's dtype; scale a
+    Python number, a 0-d or a per-row (B,) tensor."""
+    if torch.is_tensor(scale):
+        scale = scale.float()
+        if scale.ndim > 0:
+            scale = scale.reshape(-1, 1, 1)
+    else:
+        scale = float(scale)
+    return (out.float() + scale * extra.float()).to(out.dtype)
 
 
 def adapter_key(layer_name: str) -> str:
@@ -141,9 +187,13 @@ class TimeEmbedding(nn.Module):
 
 
 class UNet(nn.Module):
-    def __init__(self, cfg: UNetConfig):
+    """`encoder_only=True` builds conv_in, the time embedding, the down and
+    mid blocks only: the ControlNet's trunk."""
+
+    def __init__(self, cfg: UNetConfig, *, encoder_only: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.encoder_only = encoder_only
         chs = cfg.block_out_channels
         n = len(chs)
         temb = cfg.time_embed_dim
@@ -170,6 +220,8 @@ class UNet(nn.Module):
         self.mid_block.resnets.extend([Resnet(chs[-1], chs[-1], temb),
                                        Resnet(chs[-1], chs[-1], temb)])
         self.mid_block.attentions.append(Transformer2D(chs[-1], ctx, tl))
+        if encoder_only:
+            return
 
         self.up_blocks = nn.ModuleList()
         rev = list(reversed(chs))
@@ -212,9 +264,16 @@ class UNet(nn.Module):
         q, k, v = p.to_q(x), p.to_k(x), p.to_v(x)
         if cond.ref_kv is not None and name in cond.ref_kv:
             k_ref, v_ref = cond.ref_kv[name]
-            out = attn_ops.dual_kv_attention(
-                q, k, v, k_ref.to(q.dtype), v_ref.to(q.dtype),
-                cond.ref_scale, heads)
+            if cond.ref_mode == "concat":
+                # the garment tokens join the key / value source: one softmax
+                # over 2S keys
+                k = torch.cat([k, k_ref.to(q.dtype)], dim=1)
+                v = torch.cat([v, v_ref.to(q.dtype)], dim=1)
+                out = attn_ops.self_attention(q, k, v, heads)
+            else:
+                out = attn_ops.dual_kv_attention(
+                    q, k, v, k_ref.to(q.dtype), v_ref.to(q.dtype),
+                    cond.ref_scale, heads)
         else:
             out = attn_ops.self_attention(q, k, v, heads)
         return p.to_out(out)
@@ -222,12 +281,22 @@ class UNet(nn.Module):
     def _cross_attention(self, p: Attention, x: torch.Tensor,
                          context: torch.Tensor, name: str,
                          cond: Conditioning) -> torch.Tensor:
+        heads = self.cfg.attention_num_heads
         q = p.to_q(x)
         if cond.cross_kv is not None and name in cond.cross_kv:
             k, v = (t.to(q.dtype) for t in cond.cross_kv[name])
         else:
             k, v = p.to_k(context), p.to_v(context)
-        out = attn_ops.attention(q, k, v, self.cfg.attention_num_heads)
+        out = attn_ops.attention(q, k, v, heads)
+        if cond.ref_cross_kv is not None and name in cond.ref_cross_kv:
+            k_ref, v_ref = (t.to(q.dtype) for t in cond.ref_cross_kv[name])
+            out = _add_scaled(
+                out, attn_ops.self_attention(q, k_ref, v_ref, heads),
+                cond.ref_scale)
+        if cond.ip_kv is not None and name in cond.ip_kv:
+            k_ip, v_ip = (t.to(q.dtype) for t in cond.ip_kv[name])
+            out = _add_scaled(out, attn_ops.attention(q, k_ip, v_ip, heads),
+                              cond.ip_scale)
         return p.to_out(out)
 
     def _transformer2d(self, p: Transformer2D, x: torch.Tensor,
@@ -262,15 +331,21 @@ class UNet(nn.Module):
                 timesteps: Union[int, torch.Tensor],
                 encoder_hidden_states: torch.Tensor,
                 cond: Optional[Conditioning] = None, *,
-                capture: bool = False, remat: bool = False,
-                remat_policy: Optional[str] = None):
-        """sample (B, H, W, C_in) NHWC latents; timesteps scalar or (B,);
+                capture: bool = False, down_only: bool = False,
+                conv_in_extra: Optional[torch.Tensor] = None,
+                remat: bool = False, remat_policy: Optional[str] = None):
+        """sample (B, H, W, C_in) NHWC latents; timesteps scalar or (B,) (a
+        device tensor keeps the call free of host-to-device copies);
         encoder_hidden_states (B, L, D_ctx). Returns the eps prediction
         (B, H, W, C_out), and with capture=True also {attn1 layer name:
-        self-attention input (B, S, C)}. remat=True (training) recomputes
-        every resnet and transformer block in the backward (remat_policy
-        "full" or None; "none" turns it off, see `uses_block_remat`)."""
+        self-attention input (B, S, C)}; with down_only=True (the ControlNet
+        trunk) (skips, mid output, temb), `conv_in_extra` added to conv_in's
+        output. remat=True (training) recomputes every resnet and transformer
+        block in the backward (remat_policy "full" or None; "none" turns it
+        off, see `uses_block_remat`)."""
         cfg = self.cfg
+        if self.encoder_only and not down_only:
+            raise ValueError("an encoder-only UNet runs with down_only=True")
         resnet_fn, transformer_fn = self._resnet, self._transformer2d
         if remat and not capture and uses_block_remat(remat_policy):
 
@@ -295,6 +370,9 @@ class UNet(nn.Module):
         context = encoder_hidden_states.to(sample.dtype)
 
         h = self.conv_in(sample)
+        if conv_in_extra is not None:
+            # the ControlNet's conditioning embedding joins the trunk here
+            h = h + conv_in_extra.to(h.dtype)
         skips = [h]
         for i, block in enumerate(self.down_blocks):
             for j, rp in enumerate(block.resnets):
@@ -313,6 +391,15 @@ class UNet(nn.Module):
         h = transformer_fn(mid.attentions[0], h, context,
                            "mid_block.attentions.0", cond, captured)
         h = resnet_fn(mid.resnets[1], h, temb)
+        if down_only:
+            return skips, h, temb
+
+        # the ControlNet's residuals, added in the compute dtype
+        if cond.down_block_residuals is not None:
+            skips = [s + r.to(s.dtype)
+                     for s, r in zip(skips, cond.down_block_residuals)]
+        if cond.mid_block_residual is not None:
+            h = h + cond.mid_block_residual.to(h.dtype)
 
         for i, block in enumerate(self.up_blocks):
             for j, rp in enumerate(block.resnets):
@@ -406,10 +493,49 @@ def precompute_ref_kv(adapters: nn.ModuleDict,
 
 def precompute_cross_kv(unet: UNet, encoder_hidden_states: torch.Tensor
                         ) -> KV:
-    """Text K/V per cross-attention layer, constant across the steps."""
+    """Text K/V per cross-attention layer, constant across the steps (the
+    down and mid layers only of an encoder-only UNet)."""
     out = {}
     for name in attn_layer_names(unet.cfg, "attn2"):
+        if unet.encoder_only and name.startswith("up_blocks"):
+            continue
         attn2 = unet.attention_block(name).attn2
         out[name] = (attn2.to_k(encoder_hidden_states),
                      attn2.to_v(encoder_hidden_states))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# IP-Adapter K/V (IP-Adapter-FaceID-Plus: to_k_ip / to_v_ip per attn2 layer)
+# ---------------------------------------------------------------------------
+
+
+class IPAdapter(nn.Module):
+    """to_k_ip / to_v_ip of one cross-attention layer: face tokens
+    (cross_attention_dim) to the layer's channels."""
+
+    def __init__(self, context_dim: int, dim: int):
+        super().__init__()
+        self.to_k_ip = Linear(context_dim, dim, bias=False)
+        self.to_v_ip = Linear(context_dim, dim, bias=False)
+
+
+class IPAdapters(nn.ModuleDict):
+    """The per-layer IP adapters, keyed by `adapter_key(attn2 layer name)`."""
+
+    def __init__(self, cfg: UNetConfig):
+        dims = attn_layer_dims(cfg)
+        super().__init__({
+            adapter_key(name): IPAdapter(cfg.cross_attention_dim, dims[name])
+            for name in attn_layer_names(cfg, "attn2")})
+        self.cfg = cfg
+
+
+def precompute_ip_kv(adapters: IPAdapters, ip_tokens: torch.Tensor) -> KV:
+    """Per-cross-attention-layer IP K/V of the face tokens (B, n, D_ctx),
+    once before the sampling loop."""
+    out = {}
+    for name in attn_layer_names(adapters.cfg, "attn2"):
+        ad = adapters[adapter_key(name)]
+        out[name] = (ad.to_k_ip(ip_tokens), ad.to_v_ip(ip_tokens))
     return out

@@ -1,11 +1,23 @@
-"""The virtual-dressing pipeline, `basic` preset (port of
-`imagdressing_tpu/pipelines/dressing.py`).
+"""The virtual-dressing pipeline: one implementation, five presets (port of
+`imagdressing_tpu/pipelines/dressing.py`):
+
+  basic    - garment-only dressing
+  cartoon  - the same graph, another checkpoint
+  pose     - + the openpose ControlNet
+  ipa_pose - + IP-Adapter-FaceID-Plus face tokens
+  inpaint  - + the inpaint ControlNet and the per-step mask recomposition
+
+each with the DDIM (eta >= 0), DPM-Solver++(2M) or UniPC sampler.
 
 Structure, as in the JAX package: the garment UNet runs once at batch 1 in
-capture mode; garment K/V and text K/V are computed once, before the
-sampling loop; CFG is one batch-2 UNet call per step with the per-row
-garment scale [0, s], so only the cond half sees the garment (the flash
-kernel skips the garment pass for the scale-0 rows).
+capture mode; garment, text and IP K/V and the ControlNet's conditioning
+embedding are computed once, before the sampling loop; CFG is one batch-2B
+UNet call per step with the per-row garment scale [0, s], so only the cond
+half sees the garment (the flash kernel skips the garment pass for the
+scale-0 rows), and one ControlNet call on the same batch. Inside the loop
+no tensor is copied from the host and nothing is read back: timesteps are
+device tensors made once, step coefficients are host numbers, the eta noise
+comes from a generator on the device.
 
 The device is explicit: every entry point defaults to "cuda" and raises
 when no card is present, unless the caller passes device="cpu", which runs
@@ -16,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Optional, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -24,9 +36,12 @@ from torch import nn
 
 from imagdressing_tpu_torch.convert import params_from_jax
 from imagdressing_tpu_torch.core.config import (
+    SAMPLERS,
     CLIPTextConfig,
     CLIPVisionConfig,
+    ControlNetConfig,
     PipelineConfig,
+    ProjPlusConfig,
     ResamplerConfig,
     SchedulerConfig,
     UNetConfig,
@@ -34,20 +49,26 @@ from imagdressing_tpu_torch.core.config import (
 )
 from imagdressing_tpu_torch.models.clip import CLIPText, CLIPVision
 from imagdressing_tpu_torch.models.conditioning import Conditioning
-from imagdressing_tpu_torch.models.resampler import Resampler
+from imagdressing_tpu_torch.models.controlnet import ControlNet
+from imagdressing_tpu_torch.models.resampler import ProjPlus, Resampler
 from imagdressing_tpu_torch.models.unet import (
+    IPAdapters,
     UNet,
     init_ref_adapters_from_unet,
     precompute_cross_kv,
+    precompute_ip_kv,
     precompute_ref_kv,
 )
 from imagdressing_tpu_torch.models.vae import VAE
 from imagdressing_tpu_torch.ops.nn import init_module
-from imagdressing_tpu_torch.samplers import ddim
+from imagdressing_tpu_torch.samplers import ddim, dpm, unipc
 
 Device = Union[str, torch.device]
 MODEL_NAMES = ("unet", "ref_unet", "ref_adapters", "resampler", "vae",
                "text", "vision")
+# the models of the pose / inpaint (ControlNet) and ipa_pose presets, present
+# where the stack was built with them
+OPTIONAL_MODEL_NAMES = ("controlnet", "ip_adapters", "proj_plus")
 # the reference's requires_grad split (train.py:371-378): the garment UNet,
 # its 16 RefS adapters and the cloth Resampler train; the rest is frozen
 TRAINABLE_KEYS = ("ref_unet", "ref_adapters", "resampler")
@@ -64,11 +85,13 @@ def resolve_device(device: Device) -> torch.device:
 
 
 def _configs(small: bool) -> Dict[str, object]:
-    """The full SD1.5 stack, or the JAX package's `small=True` test stack."""
+    """The full SD1.5 stack, or the JAX package's `small=True` test stack
+    (the ProjPlus config is used where the stack has IP adapters)."""
     if not small:
         return dict(unet_cfg=UNetConfig(), vae_cfg=VAEConfig(),
                     text_cfg=CLIPTextConfig(), vision_cfg=CLIPVisionConfig(),
-                    resampler_cfg=ResamplerConfig())
+                    resampler_cfg=ResamplerConfig(),
+                    projplus_cfg=ProjPlusConfig())
     return dict(
         unet_cfg=UNetConfig(block_out_channels=(16, 32, 64, 64),
                             cross_attention_dim=32, attention_num_heads=4,
@@ -84,12 +107,18 @@ def _configs(small: bool) -> Dict[str, object]:
         resampler_cfg=ResamplerConfig(dim=32, depth=1, dim_head=8, heads=4,
                                       num_queries=8, embedding_dim=48,
                                       output_dim=32),
+        projplus_cfg=ProjPlusConfig(cross_attention_dim=32,
+                                    id_embeddings_dim=16,
+                                    clip_embeddings_dim=48, num_tokens=4,
+                                    depth=1, dim_head=8),
     )
 
 
 @dataclasses.dataclass
 class DressingModels:
-    """Every model of the `basic` preset, on one device."""
+    """Every model of the presets, on one device: those of `basic`, and
+    where built with them the ControlNet (pose, inpaint) and the IP
+    adapters with their ProjPlus projector (ipa_pose)."""
 
     unet_cfg: UNetConfig
     vae_cfg: VAEConfig
@@ -103,34 +132,54 @@ class DressingModels:
     vae: VAE
     text: CLIPText
     vision: CLIPVision
+    controlnet: Optional[ControlNet] = None
+    ip_adapters: Optional[IPAdapters] = None
+    proj_plus: Optional[ProjPlus] = None
+    controlnet_cfg: Optional[ControlNetConfig] = None
+    projplus_cfg: Optional[ProjPlusConfig] = None
 
     @classmethod
-    def _build(cls, small: bool, device: torch.device) -> "DressingModels":
+    def _build(cls, small: bool, device: torch.device,
+               with_controlnet: bool = False,
+               with_ipa: bool = False) -> "DressingModels":
         cfgs = _configs(small)
+        projplus_cfg = cfgs.pop("projplus_cfg")
+        ucfg = cfgs["unet_cfg"]
         with torch.device(device):
-            unet = UNet(cfgs["unet_cfg"])
+            unet = UNet(ucfg)
             models = dict(
-                unet=unet, ref_unet=UNet(cfgs["unet_cfg"]),
+                unet=unet, ref_unet=UNet(ucfg),
                 ref_adapters=init_ref_adapters_from_unet(unet),
                 resampler=Resampler(cfgs["resampler_cfg"]),
                 vae=VAE(cfgs["vae_cfg"]), text=CLIPText(cfgs["text_cfg"]),
                 vision=CLIPVision(cfgs["vision_cfg"]))
+            if with_controlnet:
+                cfgs["controlnet_cfg"] = ControlNetConfig(unet=ucfg)
+                models["controlnet"] = ControlNet(cfgs["controlnet_cfg"])
+            if with_ipa:
+                cfgs["projplus_cfg"] = projplus_cfg
+                models["ip_adapters"] = IPAdapters(ucfg)
+                models["proj_plus"] = ProjPlus(projplus_cfg)
         for m in models.values():
             m.eval().requires_grad_(False)
         return cls(**cfgs, **models)
 
     @classmethod
     def init_random(cls, seed: int = 0, *, small: bool = False,
+                    with_controlnet: bool = False, with_ipa: bool = False,
                     device: Device = "cuda") -> "DressingModels":
         """Random-weight stack from `torch.Generator(device).manual_seed(seed)`
-        (full SD1.5 widths, or the tiny test stack with small=True). The ref
-        adapters start as clones of the main UNet's attn1 to_k/to_v."""
+        (full SD1.5 widths, or the tiny test stack with small=True), with
+        the ControlNet and the IP adapters + ProjPlus where asked; the
+        `basic` models draw first, so they do not depend on those flags.
+        The ref adapters start as clones of the main UNet's attn1
+        to_k/to_v; the ControlNet's output convs start at zero."""
         dev = resolve_device(device)
-        models = cls._build(small, dev)
+        models = cls._build(small, dev, with_controlnet, with_ipa)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        for name in MODEL_NAMES:
+        for name, module in models.modules().items():
             if name != "ref_adapters":
-                init_module(getattr(models, name), gen)
+                init_module(module, gen)
         models.ref_adapters = init_ref_adapters_from_unet(models.unet)
         models.ref_adapters.eval().requires_grad_(False)
         return models
@@ -141,8 +190,10 @@ class DressingModels:
                         device: Device = "cuda") -> "DressingModels":
         """Load the JAX package's `DressingModels.params` (nested dicts of
         numpy arrays, see `convert.params_from_jax`) into the port's
-        modules; `small` picks the same configs as the JAX stack's."""
-        models = cls._build(small, resolve_device(device))
+        modules; `small` picks the same configs as the JAX stack's, and the
+        tree's `controlnet` / `ip_adapters` entries build those models."""
+        models = cls._build(small, resolve_device(device),
+                            "controlnet" in params, "ip_adapters" in params)
         for name, sd in params_from_jax(params).items():
             getattr(models, name).load_state_dict(sd)
         return models
@@ -150,8 +201,8 @@ class DressingModels:
     def cast(self, dtype: torch.dtype) -> "DressingModels":
         """Cast every parameter in place (bf16 for production inference);
         returns self."""
-        for name in MODEL_NAMES:
-            getattr(self, name).to(dtype)
+        for module in self.modules().values():
+            module.to(dtype)
         return self
 
     def cast_for_training(self, compute_dtype: torch.dtype = torch.bfloat16
@@ -159,14 +210,17 @@ class DressingModels:
         """The trainer's precision split, in place: the frozen models in the
         compute dtype, the trainable ones (`TRAINABLE_KEYS`) as fp32 master
         weights; returns self."""
-        for name in MODEL_NAMES:
-            getattr(self, name).to(torch.float32 if name in TRAINABLE_KEYS
-                                   else compute_dtype)
+        for name, module in self.modules().items():
+            module.to(torch.float32 if name in TRAINABLE_KEYS
+                      else compute_dtype)
         return self
 
     def modules(self) -> Dict[str, nn.Module]:
-        """{name: module} for every model, in `MODEL_NAMES` order."""
-        return {name: getattr(self, name) for name in MODEL_NAMES}
+        """{name: module} for every model present: `MODEL_NAMES`, then those
+        of `OPTIONAL_MODEL_NAMES` the stack was built with."""
+        names = MODEL_NAMES + tuple(n for n in OPTIONAL_MODEL_NAMES
+                                    if getattr(self, n) is not None)
+        return {name: getattr(self, name) for name in names}
 
     @property
     def device(self) -> torch.device:
@@ -194,10 +248,42 @@ class _StageClock:
         self._t = now
 
 
+def resize_nearest(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B, h, w, C), nearest, sampling at half-pixel
+    centres as `jax.image.resize(..., "nearest")` does: source index
+    floor((i + 0.5) * H / h), computed in fp32 (going 16 -> 4 it takes rows
+    2, 6, 10, 14; `F.interpolate(mode="nearest")` would take 0, 4, 8, 12)."""
+
+    def index(n_in: int, n_out: int) -> torch.Tensor:
+        pos = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) \
+            * np.float32(n_in) / np.float32(n_out)
+        return torch.from_numpy(np.floor(pos).astype(np.int64)).to(x.device)
+
+    x = x.index_select(1, index(x.shape[1], h))
+    return x.index_select(2, index(x.shape[2], w))
+
+
+def controlnet_keep(n: int, start: float, end: float) -> Tuple[bool, ...]:
+    """diffusers' controlnet_keep over the n used steps: step i keeps its
+    residuals iff start <= i/n and (i+1)/n <= end (fp32, as the JAX
+    pipeline compares them)."""
+    lo = np.arange(n, dtype=np.float32) / np.float32(n)
+    hi = np.arange(1, n + 1, dtype=np.float32) / np.float32(n)
+    off = (lo < np.float32(start)) | (hi > np.float32(end))
+    return tuple(bool(not o) for o in off)
+
+
+def eta_seed(seed: int) -> int:
+    """The seed of the eta > 0 noise stream, apart from the one that draws
+    the initial latents."""
+    return int(np.random.SeedSequence([seed, 0x657461]).generate_state(
+        1, np.uint64)[0])
+
+
 class DressingPipeline:
-    """Callable `basic` dressing pipeline. The argument names follow the JAX
-    package's `DressingPipeline.__call__`; arrays are NHWC. After each call
-    `last_stage_seconds` holds the per-stage wall times."""
+    """Callable dressing pipeline for one preset. The argument names follow
+    the JAX package's `DressingPipeline.__call__`; arrays are NHWC. After
+    each call `last_stage_seconds` holds the per-stage wall times."""
 
     def __init__(self, models: DressingModels, preset: PipelineConfig,
                  sched_cfg: SchedulerConfig = SchedulerConfig(), *,
@@ -206,10 +292,15 @@ class DressingPipeline:
         if models.device.type != self.device.type:
             raise ValueError(f"models on {models.device}, pipeline on "
                              f"{self.device}")
-        if (preset.use_controlnet or preset.use_ipa or preset.use_inpaint
-                or preset.sampler != "ddim" or preset.eta):
-            raise NotImplementedError(
-                f"preset {preset.name!r}: the port runs the basic DDIM path")
+        if preset.sampler not in SAMPLERS:
+            raise ValueError(f"unknown sampler {preset.sampler!r}; expected "
+                             + "/".join(SAMPLERS))
+        if preset.use_controlnet and models.controlnet is None:
+            raise ValueError(f"preset {preset.name!r} needs a ControlNet "
+                             "(init_random(..., with_controlnet=True))")
+        if preset.use_ipa and models.ip_adapters is None:
+            raise ValueError(f"preset {preset.name!r} needs the IP adapters "
+                             "(init_random(..., with_ipa=True))")
         self.models = models
         self.preset = preset
         self.schedule = ddim.make_schedule(sched_cfg)
@@ -220,37 +311,60 @@ class DressingPipeline:
             x = torch.tensor(np.asarray(x))  # a copy: inputs may be read-only
         return x.to(device=self.device, dtype=dtype)
 
+    @staticmethod
+    def _require(preset: PipelineConfig, **inputs) -> None:
+        missing = [k for k, v in inputs.items() if v is None]
+        if missing:
+            raise ValueError(f"preset {preset.name!r} needs {missing}")
+
     @torch.inference_mode()
     def __call__(self, *, prompt_ids, negative_prompt_ids, ref_image,
                  ref_clip_image, latents=None, seed: Optional[int] = None,
                  num_inference_steps: Optional[int] = None,
                  guidance_scale: Optional[float] = None,
                  image_scale: Optional[float] = None,
-                 output_uint8: bool = False) -> np.ndarray:
+                 controlnet_scale: Optional[float] = None,
+                 control_guidance_start: Optional[float] = None,
+                 control_guidance_end: Optional[float] = None,
+                 eta: Optional[float] = None, pose_image=None,
+                 faceid_embeds=None, face_clip_image=None, person_image=None,
+                 mask_image=None, output_uint8: bool = False) -> np.ndarray:
         """prompt_ids / negative_prompt_ids (B, 77) int; ref_image (B, H, W,
         3) garment in [-1, 1]; ref_clip_image (B, 224, 224, 3)
         CLIP-normalized; latents (B, H/8, W/8, 4) initial noise, else drawn
         from `torch.Generator(device).manual_seed(seed)` (other numbers
-        than the JAX package's `jax.random` for the same seed). Returns
-        images (B, H, W, 3) in [0, 1] float32, or uint8 with
-        output_uint8=True."""
-        p, m = self.preset, self.models
+        than the JAX package's `jax.random` for the same seed; so is the
+        eta > 0 noise, from a generator seeded by `eta_seed(seed)`).
+        pose (B, H, W, 3) in [0, 1]: the ControlNet's condition (pose and
+        inpaint); ipa_pose: faceid_embeds (B, id_dim) and face_clip_image
+        (B, 224, 224, 3); inpaint: person_image (B, H, W, 3) in [-1, 1] and
+        mask_image (B, H, W, 1) in {0, 1} (1 = regenerate). Returns images
+        (B, H, W, 3) in [0, 1] float32, or uint8 with output_uint8=True."""
+        p, m, dev = self.preset, self.models, self.device
         steps = num_inference_steps or p.num_inference_steps
         g = p.guidance_scale if guidance_scale is None else guidance_scale
         s = p.image_scale if image_scale is None else image_scale
+        seed = p.seed if seed is None else seed
+        eta = float(p.eta if eta is None else eta)
         cd = m.dtype
         sf = m.vae_cfg.scaling_factor
-        clock = _StageClock(self.device)
+        clock = _StageClock(dev)
+        if p.use_controlnet:
+            self._require(p, pose_image=pose_image)
+        if p.use_ipa:
+            self._require(p, faceid_embeds=faceid_embeds,
+                          face_clip_image=face_clip_image)
+        if p.use_inpaint:
+            self._require(p, person_image=person_image, mask_image=mask_image)
 
         ref_image = self._tensor(ref_image, torch.float32)
         b = ref_image.shape[0]
         if latents is None:
             f = 2 ** (len(m.vae_cfg.block_out_channels) - 1)
-            gen = torch.Generator(device=self.device).manual_seed(
-                p.seed if seed is None else seed)
+            gen = torch.Generator(device=dev).manual_seed(seed)
             latents = torch.randn((b, p.height // f, p.width // f, 4),
-                                  generator=gen, device=self.device)
-        latents = self._tensor(latents, torch.float32)
+                                  generator=gen, device=dev)
+        noise = self._tensor(latents, torch.float32)
 
         # 1. text encoding of [uncond; cond]
         ids = torch.cat([self._tensor(negative_prompt_ids, torch.long),
@@ -271,21 +385,96 @@ class DressingPipeline:
         ref_kv = {name: (torch.cat([k, k]), torch.cat([v, v]))
                   for name, (k, v) in precompute_ref_kv(m.ref_adapters,
                                                         captured).items()}
-        ref_scale = torch.cat([torch.zeros(b, device=self.device),
-                               torch.full((b,), float(s), device=self.device)])
+        ref_scale = torch.cat([torch.zeros(b, device=dev),
+                               torch.full((b,), float(s), device=dev)])
         cond = Conditioning(ref_kv=ref_kv, ref_scale=ref_scale,
                             cross_kv=precompute_cross_kv(m.unet, text_embeds))
+        if p.use_ipa:
+            # face tokens of the cond half; the uncond half's from a zeroed
+            # id embedding and a zeroed face crop
+            face_clip = self._tensor(face_clip_image, cd)
+            faceid = self._tensor(faceid_embeds, cd)
+            tokens = [m.proj_plus(fid, m.vision(img, penultimate=True))
+                      for fid, img in ((torch.zeros_like(faceid),
+                                        torch.zeros_like(face_clip)),
+                                       (faceid, face_clip))]
+            cond.ip_kv = precompute_ip_kv(m.ip_adapters, torch.cat(tokens))
+            cond.ip_scale = torch.full((2 * b,), float(p.ipa_scale),
+                                       device=dev)
         clock.mark("kv_precompute")
-        # 5. the sampling loop: one CFG-batched UNet call per step
-        lat = latents * self.schedule.init_noise_sigma
-        for t in ddim.timesteps(self.schedule, steps):
-            eps = m.unet(torch.cat([lat, lat]).to(cd), int(t), text_embeds,
-                         cond).float()
-            eps_uncond, eps_text = eps.chunk(2)
-            eps = eps_uncond + g * (eps_text - eps_uncond)
-            lat = ddim.step(self.schedule, eps, int(t), lat, steps)
+
+        # 5. the schedule; inpaint: truncated by strength, the person latents
+        #    and the mask at the latent size
+        ts_full = ddim.timesteps(self.schedule, steps)
+        t_start = 0
+        post_fn: Optional[ddim.PostStepFn] = None
+        lat = noise * self.schedule.init_noise_sigma
+        if p.use_inpaint:
+            t_start = max(steps - int(steps * p.strength), 0)
+            image_latents = (m.vae.encode_mean(
+                self._tensor(person_image, cd)) * sf).float()
+            if p.strength < 1.0:
+                lat = ddim.add_noise(self.schedule, image_latents, noise,
+                                     int(ts_full[t_start]))
+            mask = resize_nearest(self._tensor(mask_image, torch.float32),
+                                  *lat.shape[1:3])
+            keep_mask = 1.0 - mask
+
+            def post_fn(x, t_next, is_last):
+                # re-noise the known region to the next timestep with the
+                # initial noise (the original latents after the last step)
+                # and paste it around the generated region
+                known = image_latents if is_last else ddim.add_noise(
+                    self.schedule, image_latents, noise, t_next)
+                return keep_mask * known + mask * x
+
+            clock.mark("person_encode")
+        ts_used = ts_full[t_start:]
+        ts_dev = torch.as_tensor(ts_used.astype(np.int64), device=dev)
+        t_of = {int(t): ts_dev[i] for i, t in enumerate(ts_used)}
+
+        # 6. the ControlNet's conditioning embedding, text K/V and window
+        control = {}
+        if p.use_controlnet:
+            pose = self._tensor(pose_image, torch.float32)
+            keep = controlnet_keep(
+                len(ts_used),
+                p.control_guidance_start if control_guidance_start is None
+                else control_guidance_start,
+                p.control_guidance_end if control_guidance_end is None
+                else control_guidance_end)
+            control = dict(
+                cn_emb=m.controlnet.cond_embedding(torch.cat([pose, pose])),
+                cn_keep={int(t): k for t, k in zip(ts_used, keep)},
+                cn_scale=float(p.controlnet_conditioning_scale
+                               if controlnet_scale is None
+                               else controlnet_scale),
+                cn_cond=Conditioning(cross_kv=precompute_cross_kv(
+                    m.controlnet, text_embeds)))
+            clock.mark("control_embedding")
+        eps_fn = self._eps_fn(cond, text_embeds, t_of, g, **control)
+
+        # 7. the sampling loop
+        if p.sampler == "ddim":
+            gen = (torch.Generator(device=dev).manual_seed(eta_seed(seed))
+                   if eta else None)
+            ts_next = ddim.next_timesteps(ts_used)
+            for i, t in enumerate(ts_used):
+                eps = eps_fn(lat, int(t))
+                step_noise = (torch.randn(lat.shape, generator=gen, device=dev)
+                              if eta else None)
+                # prev_t from the full step count, also when truncated
+                lat = ddim.step(self.schedule, eps, int(t), lat, steps,
+                                eta=eta, noise=step_noise)
+                if post_fn is not None:
+                    lat = post_fn(lat, int(ts_next[i]), i == len(ts_used) - 1)
+        else:
+            loop = unipc.sample_loop if p.sampler == "unipc" \
+                else dpm.sample_loop
+            lat = loop(self.schedule, eps_fn, lat, steps, t_start=t_start,
+                       post_fn=post_fn)
         clock.mark("denoise")
-        # 6. decode
+        # 8. decode
         images = m.vae.decode((lat / sf).to(cd))
         out = (images.float() * 0.5 + 0.5).clamp(0.0, 1.0)
         if output_uint8:
@@ -294,3 +483,33 @@ class DressingPipeline:
         clock.mark("vae_decode")
         self.last_stage_seconds = clock.seconds
         return out
+
+    def _eps_fn(self, cond: Conditioning, text_embeds: torch.Tensor,
+                t_of: Dict[int, torch.Tensor], guidance: float, *,
+                cn_emb: Optional[torch.Tensor] = None,
+                cn_keep: Optional[Dict[int, bool]] = None,
+                cn_scale: float = 1.0,
+                cn_cond: Optional[Conditioning] = None
+                ) -> Callable[[torch.Tensor, int], torch.Tensor]:
+        """eps(lat, t): one CFG-batched UNet call (and ControlNet call, on
+        the steps its window keeps; on the others its residuals would be
+        exactly zero) at integer timestep t, the guidance applied."""
+        m = self.models
+        cd = m.dtype
+
+        def eps_fn(lat: torch.Tensor, t: int) -> torch.Tensor:
+            lat_in = torch.cat([lat, lat]).to(cd)
+            tt = t_of[t]
+            step_cond = cond
+            if cn_emb is not None and cn_keep[t]:
+                down, mid = m.controlnet(lat_in, tt, text_embeds,
+                                         cond_emb=cn_emb,
+                                         conditioning_scale=cn_scale,
+                                         cond=cn_cond)
+                step_cond = dataclasses.replace(
+                    cond, down_block_residuals=down, mid_block_residual=mid)
+            eps = m.unet(lat_in, tt, text_embeds, step_cond).float()
+            eps_uncond, eps_text = eps.chunk(2)
+            return eps_uncond + guidance * (eps_text - eps_uncond)
+
+        return eps_fn

@@ -1,12 +1,16 @@
-"""DDIM schedule, deterministic (eta = 0) update, and the training-side
-forward noising and SNR (port of `imagdressing_tpu/samplers/ddim.py`). The
-numpy tables are the port's own copy; the arithmetic runs in fp32 on the
-latents' device. Training uses the zero-SNR, trailing-spacing schedule
-(`TRAIN_SCHEDULER`)."""
+"""DDIM schedule, the update (deterministic at eta = 0, the diffusers
+variance with per-step noise at eta > 0), the forward noising and the SNR
+(port of `imagdressing_tpu/samplers/ddim.py`). The numpy tables are the
+port's own copy. A step's coefficients are Python numbers computed on the
+host in fp32 (as the JAX update computes them); the forward noising and the
+SNR read alphas_cumprod from a copy held on the device once per schedule.
+So neither copies anything to the device or waits for it. Training uses
+the zero-SNR, trailing-spacing schedule (`TRAIN_SCHEDULER`)."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -23,6 +27,9 @@ class DDIMSchedule:
     cfg: SchedulerConfig
     alphas_cumprod: np.ndarray  # (T,) float32
     final_alpha_cumprod: float
+    # alphas_cumprod on each device it was asked for (`alphas_on`)
+    _on_device: Dict[torch.device, torch.Tensor] = dataclasses.field(
+        default_factory=dict, compare=False, repr=False)
 
     @property
     def init_noise_sigma(self) -> float:
@@ -75,36 +82,60 @@ def timesteps(sched: DDIMSchedule, num_inference_steps: int) -> np.ndarray:
 
 
 def step(sched: DDIMSchedule, model_output: torch.Tensor, t: int,
-         sample: torch.Tensor, num_inference_steps: int) -> torch.Tensor:
-    """One deterministic DDIM update, epsilon prediction:
-    x_prev = sqrt(a_prev) * x0 + sqrt(1 - a_prev) * eps."""
+         sample: torch.Tensor, num_inference_steps: int, eta: float = 0.0,
+         noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One DDIM update, epsilon prediction. eta = 0:
+        x_prev = sqrt(a_prev) * x0 + sqrt(1 - a_prev) * eps.
+    eta > 0 adds the diffusers variance with the given per-step `noise`:
+        sigma  = eta * sqrt((1 - a_prev) / (1 - a_t) * (1 - a_t / a_prev))
+        x_prev = sqrt(a_prev) * x0 + sqrt(1 - a_prev - sigma^2) * eps
+                 + sigma * noise.
+    prev_t = t - T // num_inference_steps: pass the full step count even
+    where the schedule was truncated (inpaint strength)."""
     t = int(t)
     prev_t = t - sched.cfg.num_train_timesteps // num_inference_steps
-    alpha_t = float(sched.alphas_cumprod[t])
-    alpha_prev = (float(sched.alphas_cumprod[prev_t]) if prev_t >= 0
-                  else np.float32(sched.final_alpha_cumprod))
     # the JAX update computes its coefficients in fp32
-    a_t, a_prev = np.float32(alpha_t), np.float32(alpha_prev)
-    c_eps = float(np.sqrt(np.float32(1.0) - a_t))
+    a_t = sched.alphas_cumprod[t]
+    a_prev = (sched.alphas_cumprod[prev_t] if prev_t >= 0
+              else np.float32(sched.final_alpha_cumprod))
+    one = np.float32(1.0)
+    c_eps = float(np.sqrt(one - a_t))
     c_x0 = float(np.sqrt(a_t))
     c_prev = float(np.sqrt(a_prev))
-    c_dir = float(np.sqrt(np.float32(1.0) - a_prev))
     x = sample.float()
     eps = model_output.float()
     x0 = (x - c_eps * eps) / c_x0
-    return (c_prev * x0 + c_dir * eps).to(sample.dtype)
+    if not eta:
+        c_dir = float(np.sqrt(one - a_prev))
+        return (c_prev * x0 + c_dir * eps).to(sample.dtype)
+    if noise is None:
+        raise ValueError("a DDIM step with eta > 0 needs its noise")
+    var = (one - a_prev) / (one - a_t) * (one - a_t / a_prev)
+    sigma = np.float32(eta) * np.sqrt(var)
+    c_dir = float(np.sqrt(one - a_prev - sigma * sigma))
+    return (c_prev * x0 + c_dir * eps
+            + float(sigma) * noise.float()).to(sample.dtype)
 
 
-def _alphas_at(sched: DDIMSchedule, t: torch.Tensor) -> torch.Tensor:
-    ac = torch.as_tensor(sched.alphas_cumprod, device=t.device)
-    return ac[t.long()]
+def alphas_on(sched: DDIMSchedule, device: torch.device) -> torch.Tensor:
+    """alphas_cumprod (T,) fp32 on `device`, copied there once per
+    schedule."""
+    device = torch.device(device)
+    table = sched._on_device.get(device)
+    if table is None:
+        table = torch.as_tensor(sched.alphas_cumprod, device=device)
+        sched._on_device[device] = table
+    return table
 
 
 def add_noise(sched: DDIMSchedule, original: torch.Tensor,
-              noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+              noise: torch.Tensor, t: Union[int, torch.Tensor]
+              ) -> torch.Tensor:
     """Forward-process noising sqrt(a_t) x0 + sqrt(1 - a_t) eps, fp32 math,
-    the result in `original`'s dtype; t (B,) integer timesteps."""
-    a = _alphas_at(sched, t).float()
+    the result in `original`'s dtype; t an integer timestep or (B,) integer
+    timesteps on `original`'s device."""
+    table = alphas_on(sched, original.device)
+    a = table[t.long()] if torch.is_tensor(t) else table[int(t)]
     a = a.reshape(a.shape + (1,) * (original.ndim - a.ndim))
     return (torch.sqrt(a) * original.float()
             + torch.sqrt(1.0 - a) * noise.float()).to(original.dtype)
@@ -112,5 +143,16 @@ def add_noise(sched: DDIMSchedule, original: torch.Tensor,
 
 def compute_snr(sched: DDIMSchedule, t: torch.Tensor) -> torch.Tensor:
     """SNR(t) = a_t / (1 - a_t), the min-SNR loss weighting."""
-    a = _alphas_at(sched, t)
+    a = alphas_on(sched, t.device)[t.long()]
     return a / (1.0 - a)
+
+
+def next_timesteps(ts: np.ndarray) -> np.ndarray:
+    """The timestep each step's post-step hook sees: the next one, 0 after
+    the last."""
+    return np.concatenate([ts[1:], np.zeros((1,), ts.dtype)])
+
+
+# a post-step hook of the sampling loops: (x_next, t_next, is_last) ->
+# x_next, as the JAX scans pass it (the inpaint recomposition)
+PostStepFn = Callable[[torch.Tensor, int, bool], torch.Tensor]

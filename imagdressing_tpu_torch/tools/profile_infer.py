@@ -1,13 +1,17 @@
-"""Device-time breakdown of one `basic` try-on on a CUDA card (the port's
-counterpart of `imagdressing_tpu/tools/profile_infer.py`, with
+"""Device-time breakdown of one try-on of a preset on a CUDA card (the
+port's counterpart of `imagdressing_tpu/tools/profile_infer.py`, with
 `torch.profiler` in place of `jax.profiler`).
 
 Random bf16 weights at full SD1.5 width (the FLOPs and bytes of real
-checkpoints). One warm call, then one call under the profiler. Prints one
-JSON object: wall time, per-stage wall times, the device's busy share of
-the wall window, device time and launches by kernel class, device time by
-kernel, and, for the kernels with many shapes (K1, K2, K3), each shape's
-launches in that call,
+checkpoints); for the ControlNet presets its zero-initialised output convs
+are filled with random values. One warm call, then one call under the
+profiler. Prints one JSON object: wall time, per-stage wall times, the
+device's busy share of the wall window, device time and launches by kernel
+class, device time by kernel, for the ControlNet presets the device time of
+one ControlNet call and of one main-UNet call at the run's CFG batch
+(CUDA-graph replays) with the ControlNet's share of the run's device time,
+and, for the kernels with many shapes (K1, K2, K3), each shape's launches
+in that call,
 its device time (CUDA-graph replays of the call: the deep UNet shapes take
 less device time than host time), achieved TFLOP/s and bound (the largest
 of tensor FLOPs over 989 TFLOP/s, bytes over 3.35 TB/s and, for K1, one
@@ -18,10 +22,13 @@ K3's mode, cluster and slab.
 
 Usage (on the card's machine, from the repository root):
     python -m imagdressing_tpu_torch.tools.profile_infer [WxH] [steps]
+        [--preset basic|cartoon|pose|ipa_pose|inpaint]
+(the size defaults to the preset's: 512x640, inpaint 512x512)
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
@@ -180,7 +187,112 @@ def _flash_plan(b, s, h, d, dual):
     return {"plan": dict(rows=p.rows, bkv=p.bkv, stages=p.stages, dn=p.dn)}
 
 
-def main(size: str = "512x640", steps: int = 30) -> dict:
+def fill_zero_convs(controlnet, seed: int = 1) -> None:
+    """Random values (each conv's own init) in the ControlNet's
+    zero-initialised output convs, so that its residuals are not zero."""
+    import torch
+
+    gen = torch.Generator(device=controlnet.conv_in.weight.device)
+    gen.manual_seed(seed)
+    for conv in (controlnet.controlnet_cond_embedding.conv_out,
+                 controlnet.controlnet_mid_block,
+                 *controlnet.controlnet_down_blocks):
+        conv.reset_parameters(gen)
+
+
+def preset_models(preset):
+    """Full-width bf16 random models for `preset`: with the ControlNet (its
+    zero convs filled) and the IP adapters where the preset runs them."""
+    import torch
+
+    from imagdressing_tpu_torch.pipelines.dressing import DressingModels
+
+    models = DressingModels.init_random(
+        0, with_controlnet=preset.use_controlnet, with_ipa=preset.use_ipa)
+    if models.controlnet is not None:
+        fill_zero_convs(models.controlnet)
+    return models.cast(torch.bfloat16)
+
+
+def preset_inputs(b: int, h: int, w: int, clip_size: int = 224,
+                  id_dim: int = 512, vocab: int = 49408,
+                  seed: int = 0) -> dict:
+    """Random inputs of every preset, numpy from `seed`: prompts, garment,
+    pose (the ControlNet's condition), face embedding and crop, person, and
+    a mask box over the upper middle of the image (1 = regenerate)."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((b, h, w, 1), np.float32)
+    mask[:, h // 8:5 * h // 8, w // 4:3 * w // 4] = 1.0
+    return dict(prompt_ids=rng.integers(0, vocab, (b, 77)),
+                negative_prompt_ids=rng.integers(0, vocab, (b, 77)),
+                ref_image=rng.uniform(-1, 1, (b, h, w, 3)),
+                ref_clip_image=rng.standard_normal((b, clip_size, clip_size,
+                                                    3)),
+                pose_image=rng.uniform(0, 1, (b, h, w, 3)),
+                faceid_embeds=rng.standard_normal((b, id_dim)),
+                face_clip_image=rng.standard_normal((b, clip_size, clip_size,
+                                                     3)),
+                person_image=rng.uniform(-1, 1, (b, h, w, 3)),
+                mask_image=mask)
+
+
+def _unet_calls(models, h: int, w: int, ipa: bool):
+    """(one ControlNet call, one main-UNet call) at a CFG batch of 2 and the
+    latent size of an h x w image as the loop runs them: text K/V hoisted,
+    garment K/V with scales [0, 1], the residuals, and with `ipa` the 4 face
+    tokens' K/V (random conditioning of the run's shapes)."""
+    import torch
+
+    from imagdressing_tpu_torch.models.conditioning import Conditioning
+    from imagdressing_tpu_torch.models.unet import (
+        attn_layer_dims,
+        attn_layer_names,
+        precompute_cross_kv,
+    )
+
+    def layer_kv(which, tokens):
+        dims = attn_layer_dims(models.unet_cfg)
+        return {n: tuple(torch.randn((2, tokens(n), dims[n]), device="cuda",
+                                     dtype=dt) for _ in range(2))
+                for n in attn_layer_names(models.unet_cfg, which)}
+
+    def latent_tokens(name):
+        parts, n = name.split("."), len(models.unet_cfg.block_out_channels)
+        level = {"down_blocks": lambda: int(parts[1]),
+                 "up_blocks": lambda: n - 1 - int(parts[1]),
+                 "mid_block": lambda: n - 1}[parts[0]]()
+        return ((h // 8) >> level) * ((w // 8) >> level)
+
+    dt = models.dtype
+    cn = models.controlnet
+    with torch.inference_mode():
+        lat = torch.randn((2, h // 8, w // 8, 4), device="cuda", dtype=dt)
+        text = torch.randn((2, 77, models.text_cfg.hidden_size),
+                           device="cuda", dtype=dt)
+        t = torch.tensor(500, device="cuda")
+        emb = cn.cond_embedding(torch.rand((2, h, w, 3), device="cuda"))
+        cn_cond = Conditioning(cross_kv=precompute_cross_kv(cn, text))
+        down, mid = cn(lat, t, text, cond_emb=emb, cond=cn_cond)
+        cond = Conditioning(
+            ref_kv=layer_kv("attn1", latent_tokens),
+            ref_scale=torch.tensor([0.0, 1.0], device="cuda"),
+            ip_kv=layer_kv("attn2", lambda n: 4) if ipa else None,
+            ip_scale=torch.full((2,), 0.9, device="cuda"),
+            cross_kv=precompute_cross_kv(models.unet, text),
+            down_block_residuals=down, mid_block_residual=mid)
+
+    def controlnet():
+        with torch.inference_mode():
+            return cn(lat, t, text, cond_emb=emb, cond=cn_cond)
+
+    def unet():
+        with torch.inference_mode():
+            return models.unet(lat, t, text, cond)
+
+    return controlnet, unet
+
+
+def main(size: str = None, steps: int = 30, preset: str = "basic") -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -188,22 +300,18 @@ def main(size: str = "512x640", steps: int = 30) -> dict:
     from imagdressing_tpu_torch.kernels import flash_attention as fa
     from imagdressing_tpu_torch.kernels import fused_gn_conv as fgc
     from imagdressing_tpu_torch.kernels import fused_groupnorm as fg
-    from imagdressing_tpu_torch.pipelines.dressing import (
-        DressingModels,
-        DressingPipeline,
-    )
+    from imagdressing_tpu_torch.pipelines.dressing import DressingPipeline
+    from imagdressing_tpu_torch.tools.timing import cuda_graph_ms
 
-    w, h = (int(t) for t in size.split("x"))
-    models = DressingModels.init_random(0).cast(torch.bfloat16)
-    preset = dataclasses.replace(PRESETS["basic"], height=h, width=w,
-                                 num_inference_steps=steps)
-    pipe = DressingPipeline(models, preset)
-    rng = np.random.default_rng(0)
-    kw = dict(prompt_ids=rng.integers(0, 49408, (1, 77)),
-              negative_prompt_ids=rng.integers(0, 49408, (1, 77)),
-              ref_image=rng.uniform(-1, 1, (1, h, w, 3)),
-              ref_clip_image=rng.standard_normal((1, 224, 224, 3)),
-              output_uint8=True)
+    base = PRESETS[preset]
+    w, h = ((int(t) for t in size.split("x")) if size
+            else (base.width, base.height))
+    size = f"{w}x{h}"
+    cfg = dataclasses.replace(base, height=h, width=w,
+                              num_inference_steps=steps)
+    models = preset_models(cfg)
+    pipe = DressingPipeline(models, cfg)
+    kw = dict(preset_inputs(1, h, w), output_uint8=True)
     pipe(**kw)  # warm: kernel build, library handles, allocator
     for counter in (fa.COUNTER, fgc.COUNTER, fg.COUNTER):
         counter.reset()
@@ -226,7 +334,8 @@ def main(size: str = "512x640", steps: int = 30) -> dict:
         raise RuntimeError("the profiler recorded no device time")
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]
     result = dict(
-        device=torch.cuda.get_device_name(0), size=size, steps=steps,
+        device=torch.cuda.get_device_name(0), preset=preset, size=size,
+        steps=steps,
         wall_ms=wall * 1e3, device_ms=device_ms,
         device_busy_share=device_ms / (wall * 1e3),
         stage_ms={k: v * 1e3 for k, v in pipe.last_stage_seconds.items()},
@@ -242,10 +351,25 @@ def main(size: str = "512x640", steps: int = 30) -> dict:
                                  _flash_bytes, _flash_plan, _flash_exp2),
         group_norm_shapes=_shape_rows(fg.COUNTER, _gn_call,
                                       lambda *k: 0.0, _gn_bytes, _gn_plan))
+    if cfg.use_controlnet:  # after the shape rows: this launches too
+        # a step outside the ControlNet's window runs no ControlNet call;
+        # the default window keeps every used step
+        used = steps - (max(steps - int(steps * cfg.strength), 0)
+                        if cfg.use_inpaint else 0)
+        controlnet, unet = _unet_calls(models, h, w, cfg.use_ipa)
+        cn_ms, unet_ms = (cuda_graph_ms(f, calls=3, replays=5)
+                          for f in (controlnet, unet))
+        result.update(used_steps=used, controlnet_call_ms=cn_ms,
+                      unet_call_ms=unet_ms,
+                      controlnet_share=used * cn_ms / device_ms)
     print(json.dumps(result), flush=True)
     return result
 
 
 if __name__ == "__main__":
-    args = sys.argv[1:]
-    main(*args[:1], *(int(a) for a in args[1:2]))
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("size", nargs="?", help="WxH (default: the preset's)")
+    ap.add_argument("steps", nargs="?", type=int, default=30)
+    ap.add_argument("--preset", default="basic")
+    a = ap.parse_args(sys.argv[1:])
+    main(a.size, a.steps, a.preset)

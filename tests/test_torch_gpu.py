@@ -261,6 +261,41 @@ def test_full_width_pipeline_runs_through_the_kernels(cuda):
     assert all(c.count > 0 for c in counters)
 
 
+@pytest.mark.parametrize("preset,used,encodes", [("pose", 2, 1),
+                                                 ("ipa_pose", 2, 1),
+                                                 ("inpaint", 1, 2)])
+def test_full_width_presets_run_through_the_kernels(cuda, preset, used,
+                                                    encodes):
+    """The ControlNet presets at full SD1.5 width and their sizes, bf16, 2
+    steps (inpaint's strength 0.99 uses 1): a uint8 image, and per step the
+    main UNet's and the ControlNet's launches of K1 (16 + 7), K2 (44 + 20)
+    and K3 (17 + 7), plus the garment pass and the VAE's."""
+    models = DressingModels.init_random(0, with_controlnet=True,
+                                        with_ipa=True).cast(torch.bfloat16)
+    p = PRESETS[preset]
+    pipe = DressingPipeline(models, p)
+    h, w = p.height, p.width
+    rng = np.random.default_rng(0)
+    counters = (fa.COUNTER, fgc.COUNTER, fg.COUNTER)
+    for c in counters:
+        c.reset()
+    out = pipe(prompt_ids=rng.integers(0, 49408, (1, 77)),
+               negative_prompt_ids=rng.integers(0, 49408, (1, 77)),
+               ref_image=rng.uniform(-1, 1, (1, h, w, 3)),
+               ref_clip_image=rng.standard_normal((1, 224, 224, 3)),
+               pose_image=rng.uniform(0, 1, (1, h, w, 3)),
+               faceid_embeds=rng.standard_normal((1, 512)),
+               face_clip_image=rng.standard_normal((1, 224, 224, 3)),
+               person_image=rng.uniform(-1, 1, (1, h, w, 3)),
+               mask_image=np.ones((1, h, w, 1), np.float32),
+               num_inference_steps=2, output_uint8=True)
+    assert out.shape == (1, h, w, 3) and out.dtype == np.uint8
+    assert out.std() > 0
+    assert [c.count for c in counters] == [
+        used * 23 + 16 + encodes + 1, used * 64 + 44 + 20 * encodes + 28,
+        used * 24 + 17]
+
+
 def test_wrappers_return_a_grad_fn_under_grad(cuda):
     """Every CUDA wrapper, asked for a gradient, returns its Function's
     output (and the gradient reaches the inputs); without one, no grad_fn."""

@@ -10,6 +10,8 @@ numpy from a seed. fp32 tolerances are those of the JAX kernel tests or
 tighter.
 """
 
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -137,13 +139,17 @@ def test_flash_bf16_matches_pallas_interpret(fa_interpret):
 
 def _full_width_flash_shapes():
     """(b, sq, h, d) of every flash forward (K1, and K5 under a gradient) of
-    the full-width `basic` path and training step at 512x640: each UNet
-    self-attention level with attention (main and garment UNet, batch 2 and
-    1) and the VAE's single-head mid attention; then the same for the tiny
-    test stacks (`small=True` and `chip_smoke.py`'s mini stack, 64x64 images)
-    where the head dim meets the card's rule (a multiple of 8)."""
+    the full-width paths at 512x640 (`basic`, `pose`, `ipa_pose`, training)
+    and 512x512 (`inpaint`): each UNet self-attention level with attention
+    (main and garment UNet and the ControlNet's trunk, batch 2 and 1) and
+    the VAE's single-head mid attention; then the same for the tiny test
+    stacks (`small=True` and `chip_smoke.py`'s mini stack, 64x64 images)
+    where the head dim meets the card's rule (a multiple of 8). The
+    `concat` self-attention's 2S keys and the garment-cross branch run at
+    these q shapes: the plan has no key length."""
     shapes = set()
     stacks = [(UNetConfig(), VAEConfig(), 640, 512),
+              (UNetConfig(), VAEConfig(), 512, 512),
               (UNetConfig(block_out_channels=(16, 32, 64, 64),
                           attention_num_heads=4),
                VAEConfig(block_out_channels=(16, 16, 32, 32)), 64, 64),
@@ -175,7 +181,8 @@ def test_flash_plan_keeps_the_kernel_limits():
     launches."""
     shapes = _full_width_flash_shapes()
     assert (2, 5120, 8, 40) in shapes and (2, 80, 8, 160) in shapes \
-        and (1, 5120, 1, 512) in shapes and (2, 64, 4, 8) in shapes
+        and (1, 5120, 1, 512) in shapes and (2, 64, 4, 8) in shapes \
+        and (2, 4096, 8, 40) in shapes and (1, 4096, 1, 512) in shapes
     assert {d for *_, d in shapes if d > tfa.MAX_GRAD_HEAD_DIM} == {512}
     for b, sq, h, d in shapes:
         for dual in (True, False):
@@ -369,11 +376,13 @@ def test_gn_conv_matches_windowed_interpret(shape, with_add):
 
 
 def _full_width_gn_conv_shapes():
-    """(b, h, w, cin, cout) of every GN+SiLU+conv3x3 of the full-width
-    `basic` path and training step at 512x640: the UNet's resnets (main and
-    garment UNet) at the 80x64 latent, batch 2 (CFG) and 1 (the garment pass,
-    training), and the VAE's encoder and decoder resnets at batch 1 and 2;
-    each resnet's conv1 (cin -> cout) and conv2 (cout -> cout)."""
+    """(b, h, w, cin, cout) of every GN+SiLU+conv3x3 of the full-width paths
+    at 512x640 (`basic`, `pose`, `ipa_pose`, training) and 512x512
+    (`inpaint`): the UNet's resnets (main and garment UNet; the ControlNet's
+    trunk runs the down and mid ones) at the latent size, batch 2 (CFG) and
+    1 (the garment pass, training), and the VAE's encoder and decoder
+    resnets at batch 1 and 2; each resnet's conv1 (cin -> cout) and conv2
+    (cout -> cout)."""
     u, v = UNetConfig(), VAEConfig()
     res = []  # (level, cin, cout) of each resnet
     ch, nl = u.block_out_channels, u.layers_per_block
@@ -391,9 +400,10 @@ def _full_width_gn_conv_shapes():
             res.append((lvl, cin + skips.pop(), co))
             cin = co
     shapes = set()
+    sizes = ((640, 512), (512, 512))
     for b in (1, 2):
-        for lvl, ci, co in res:
-            h, w = 80 >> lvl, 64 >> lvl
+        for (ih, iw), (lvl, ci, co) in itertools.product(sizes, res):
+            h, w = (ih // 8) >> lvl, (iw // 8) >> lvl
             shapes |= {(b, h, w, ci, co), (b, h, w, co, co)}
     vres, cin = [], v.block_out_channels[0]
     for lvl, co in enumerate(v.block_out_channels):  # encoder, 640x512 down
@@ -406,8 +416,8 @@ def _full_width_gn_conv_shapes():
             vres.append((lvl, cin, co))
             cin = co
     for b in (1, 2):
-        for lvl, ci, co in vres:
-            h, w = 640 >> lvl, 512 >> lvl
+        for (ih, iw), (lvl, ci, co) in itertools.product(sizes, vres):
+            h, w = ih >> lvl, iw >> lvl
             shapes |= {(b, h, w, ci, co), (b, h, w, co, co)}
     return sorted(shapes)
 
@@ -420,7 +430,9 @@ def test_conv_plan_keeps_the_kernel_limits():
     least one block per SM where M <= 640 pixels."""
     shapes = _full_width_gn_conv_shapes()
     assert (2, 10, 8, 2560, 1280) in shapes and (1, 640, 512, 256, 128) \
-        in shapes and (2, 80, 64, 960, 320) in shapes
+        in shapes and (2, 80, 64, 960, 320) in shapes \
+        and (2, 8, 8, 2560, 1280) in shapes and (1, 512, 512, 256, 128) \
+        in shapes
     for b, h, w, cin, co in shapes:
         p = fgc.conv_plan(b, h, w, cin, co)
         what = (b, h, w, cin, co, p)
@@ -440,14 +452,18 @@ def test_conv_plan_keeps_the_kernel_limits():
 
 
 def _full_width_group_norm_shapes():
-    """(b, m, c, act) of every GroupNorm of the full-width `basic` path and
-    training step at 512x640 and of the VAE's encode and decode: K3 at each
-    UNet level (transformer in-norms, act none; conv_norm_out, silu) at
-    batch 1 and 2, and the GN+SiLU prologue of every GN+conv (K2, K4)."""
+    """(b, m, c, act) of every GroupNorm of the full-width paths at 512x640
+    and 512x512 and of the VAE's encode and decode: K3 at each UNet level
+    (transformer in-norms of the UNets and the ControlNet's trunk, act none;
+    conv_norm_out, silu) at batch 1 and 2, and the GN+SiLU prologue of every
+    GN+conv (K2, K4)."""
     u = UNetConfig()
-    shapes = {(b, (80 >> lvl) * (64 >> lvl), ch, "none")
-              for b in (1, 2) for lvl, ch in enumerate(u.block_out_channels)}
-    shapes |= {(b, 80 * 64, u.block_out_channels[0], "silu") for b in (1, 2)}
+    latents = ((80, 64), (64, 64))
+    shapes = {(b, (lh >> lvl) * (lw >> lvl), ch, "none")
+              for b in (1, 2) for lh, lw in latents
+              for lvl, ch in enumerate(u.block_out_channels)}
+    shapes |= {(b, lh * lw, u.block_out_channels[0], "silu")
+               for b in (1, 2) for lh, lw in latents}
     shapes |= {(b, h * w, cin, "silu")
                for b, h, w, cin, _ in _full_width_gn_conv_shapes()}
     return sorted(shapes)
@@ -465,7 +481,9 @@ def test_gn_plan_keeps_the_kernel_limits():
     within the same limits."""
     shapes = _full_width_group_norm_shapes()
     assert (2, 5120, 320, "none") in shapes and (1, 327680, 256, "silu") \
-        in shapes and (2, 80, 1280, "none") in shapes
+        in shapes and (2, 80, 1280, "none") in shapes \
+        and (2, 4096, 320, "none") in shapes and (2, 64, 1280, "none") \
+        in shapes and (1, 262144, 128, "silu") in shapes
     modes = {}
     for b, m, c, act in shapes:
         for dtype in (torch.bfloat16, torch.float32):

@@ -277,6 +277,8 @@ def test_port_imports_no_jax():
         PORT_DIR.parent / "chip_smoke.py",
         PORT_DIR.parent / "tests" / "test_torch_gpu.py"]
     assert len(files) > 10
+    # the preset slice's modules are among them
+    assert {"controlnet.py", "dpm.py", "unipc.py"} <= {f.name for f in files}
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
