@@ -13,7 +13,9 @@ Phases, each printing one line:
      at the deep UNet levels (split K) and at a ragged shape, and the
      gradients of the GN+conv and GroupNorm autograd Functions, K3 at the
      four UNet levels at batch 2 and 1, with the temb fold, at a ragged
-     shape and at a VAE pixel level (streaming); then determinism: K1, K5,
+     shape and at a VAE pixel level (streaming); K1-K4 at the shapes of a
+     served batch of 4 images (the CFG batch 8 of the UNet, batch 4 of the
+     VAE; also timed); then determinism: K1, K5,
      the backward pair, the GN+conv (split K, not, and streaming) and K3
      (resident and streaming) twice on the same inputs must give
      bit-identical results;
@@ -53,7 +55,19 @@ Phases, each printing one line:
  10. parse: `Parsing.__call__` at full width on a 1024x768 synthetic person
      photo, cuDNN's default TF32 convs: one warm call, one counted call
      (K7's launches), then PARSES timed calls with the median wall time, the
-     device time of both forwards, the host refinement's time, peak memory.
+     device time of both forwards, the host refinement's time, peak memory;
+ 11. load: the full-width `basic` stack in bf16 written as the reference's
+     checkpoint files (`tools/write_checkpoints.py`) into a temporary
+     directory of the checkout and loaded back by `apps.loader.
+     load_dressing_models(..., device="cuda")`: every parameter bit-equal;
+     write s, load s, peak host RSS and device memory of the load;
+ 12. serve: the port's HTTP server (`apps.serve`) over the loaded stack,
+     `basic` 512x640, STEPS steps: 4 concurrent requests answered by one
+     batch-4 pipeline call (launches exactly `expected_launches`), bit-equal
+     to a direct call on the same arrays; other seeds in their own rounds;
+     the batch-4 latency, images per minute, stage times, peak memory;
+ 13. dress: `apps.dress.main` on a folder of 5 PNG garments at batch 4 (one
+     chunk padded), loading from the same files: 5 collages, wall per chunk.
 Then the per-kernel JSON line, the `nvidia-smi` line, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 Without a card, or without the rest of the repository, it exits non-zero.
@@ -70,6 +84,8 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -140,7 +156,8 @@ def exp2_per_ms() -> float:
 def flash_case(b, s, h, d, dual, dtype, seed, lengths=None, scale=None):
     """K1 against its plain version; library: two SDPA calls and the scaled
     sum. `lengths` (Sq, Skv, Sref) for ragged sequences, else all s;
-    `scale` the ref scales (default [0, 1] at batch 2, the CFG batch).
+    `scale` the ref scales (default the CFG layout: [0, 1] at batch 2,
+    [0, 0, 0, 0, 1, 1, 1, 1] at the CFG batch 8 of four images).
     graph=True: the device time comes from CUDA-graph replays (eager times
     beside it); the plain version stays eager (tens of ms, device-bound)."""
     import torch
@@ -153,8 +170,9 @@ def flash_case(b, s, h, d, dual, dtype, seed, lengths=None, scale=None):
          for n in (sq, skv, skv) + ((sref, sref) if dual else ())]
     args = tuple(t)
     if dual:
-        if scale is None:
-            scale = [0.0, 1.0] if b == 2 else [1.0] * b
+        if scale is None:  # the CFG layout [uncond 0...; cond 1...]
+            scale = [0.0] * (b // 2) + [1.0] * (b // 2) if b % 2 == 0 \
+                else [1.0] * b
         args += (torch.tensor(scale, device="cuda"),)
     # 4*Sq*Skv*D flops and Sq*Skv exp2 per (b, h) and source; rows with
     # scale 0 skip the ref pass
@@ -424,7 +442,9 @@ def flash_bwd_case(b, s, h, d, dual, scale, dtype, seed, part=None,
 
 def _grad_case(fn, plain, leaves, g):
     """An autograd Function against autograd of its plain version: each
-    leaf's gradient; the Function's output must carry its grad_fn."""
+    leaf's gradient; the Function's output must carry its grad_fn. The
+    case also keeps its inputs and both functions (for
+    `tools/gn_conv_grad_probe.py`)."""
     import torch
 
     def kernel():
@@ -436,7 +456,8 @@ def _grad_case(fn, plain, leaves, g):
 
     return dict(kernel=kernel,
                 plain=lambda: torch.autograd.grad(plain(*leaves), leaves, g),
-                outputs=tuple(f"d{i}" for i in range(len(leaves))))
+                outputs=tuple(f"d{i}" for i in range(len(leaves))),
+                leaves=leaves, g=g, fns=(fn, plain))
 
 
 def gn_conv_grad_case(dtype, seed):
@@ -526,6 +547,18 @@ GN_CASES = [((2, 5120, 320), "none", 32, False),
             ((2, 256, 1280), "none", 32, False),
             ((2, 64, 1280), "none", 32, False)]
 K3_TIMED = [group_norm_label(*a) for a in GN_CASES[:4]]
+
+
+# a served batch of 4 images: K1 at the CFG batch 8's top and second
+# levels and the VAE's mid attention at batch 4; K2 at the top latent level
+# (CFG batch 8) and K4 at the decoder's top pixel level at batch 4 (3.4e8
+# elements of x); K3 resident at the CFG batch 8 and streaming at the VAE's
+# pixel level at batch 4
+B4_FLASH_SHAPES = [(8, 5120, 8, 40, True), (8, 1280, 8, 80, True),
+                   (4, 5120, 1, 512, False)]
+B4_GN_CONV_SHAPES = [(8, 80, 64, 320, 320, True),
+                     (4, 640, 512, 256, 128, False)]
+B4_GN_CASES = [((8, 5120, 320), "none"), ((4, 327680, 256), "silu")]
 
 
 # K5 / K6 check shapes: the four UNet self-attention levels of a batch-1
@@ -622,6 +655,24 @@ def check_cases():
                        ((1, 60, 60, 256), "elu")]:
         cases.append(("bn_act", "x".join(map(str, shape)) + act,
                       lambda dt, sd, a=(shape, act): bn_act_case(*a, dt, sd)))
+    # last, so that the cases above keep their seeds (a case's seed is its
+    # index): K1-K4 at the shapes of a served batch of 4 images, the UNet's
+    # CFG batch 8 (ref scale [0 x 4, 1 x 4]) and the VAE's batch 4
+    for b, s, h, d, dual in B4_FLASH_SHAPES:
+        cases.append(("flash_fwd", f"{b}x{s}x{h}x{d}" + ("dual" if dual
+                                                          else ""),
+                      lambda dt, sd, a=(b, s, h, d, dual):
+                      flash_case(*a, dt, sd)))
+    for b, h, w, cin, co, add in B4_GN_CONV_SHAPES:
+        name = "gn_silu_conv3x3[vae_pixel]" if h * w > 80 * 64 \
+            else "gn_silu_conv3x3"
+        cases.append((name, gn_conv_label(b, h, w, cin, co, add),
+                      lambda dt, sd, a=(b, h, w, cin, co, add):
+                      gn_conv_case(*a, dt, sd)))
+    for shape, act in B4_GN_CASES:
+        cases.append(("group_norm_act", group_norm_label(shape, act),
+                      lambda dt, sd, a=(shape, act):
+                      group_norm_case(*a, dt, sd)))
     return cases
 
 
@@ -637,6 +688,13 @@ OUTPUT_KERNEL = {("flash_bwd", "dq"): "flash_bwd_dq",
 # K1 is also timed at every level of the main path and at D = 512
 K1_TIMED = ["2x5120x8x40dual", "2x1280x8x80dual", "2x320x8x160dual",
             "2x80x8x160dual", "1x5120x1x512"]
+# the batch-4 shapes of the served path, also timed
+B4_TIMED = [("flash_fwd", "8x5120x8x40dual"), ("flash_fwd", "8x1280x8x80dual"),
+            ("flash_fwd", "4x5120x1x512"),
+            ("gn_silu_conv3x3", "8x80x64x320->320+add"),
+            ("gn_silu_conv3x3[vae_pixel]", "4x640x512x256->128"),
+            ("group_norm_act", "8x5120x320none"),
+            ("group_norm_act", "4x327680x256silu")]
 # the shape each kernel is timed at (the first check case of that name)
 TIMED = {"flash_fwd": "2x5120x8x40dual",
          "gn_silu_conv3x3": "2x80x64x320->320+add",
@@ -839,6 +897,8 @@ def phase_time():
         label = f"{b}x{s_}x{h}x{d}dual"
         if label != TIMED["flash_fwd_res"]:
             timed("flash_fwd_res", label, "bf16")
+    for name, label in B4_TIMED:
+        timed(name, label, "bf16")
     # the pair K6b + K6a in one call, beside the function's own bound: 5
     # products per (q, k) pair (dQ, dK, dV, S and dP once each) and one exp2
     case = by_label[("flash_bwd", "1x5120x8x40dual")](torch.bfloat16, 1000)
@@ -1300,6 +1360,390 @@ def _sums(modules):
             for name, m in modules.items()}
 
 
+# ---------------------------------------------------------------------------
+# From checkpoint files: the loader, the HTTP server, the dress CLI
+# ---------------------------------------------------------------------------
+
+
+class _RssPeak(threading.Thread):
+    """The largest resident set size of this process seen while running,
+    sampled from /proc/self/statm every 2 ms (None where it is unreadable)."""
+
+    def __init__(self):
+        super().__init__(daemon=True)
+        self.peak, self.done = None, threading.Event()
+
+    @staticmethod
+    def rss_gib():
+        try:
+            with open("/proc/self/statm") as f:
+                pages = int(f.read().split()[1])
+        except (OSError, ValueError, IndexError):
+            return None
+        return pages * os.sysconf("SC_PAGE_SIZE") / 2**30
+
+    def run(self):
+        while not self.done.wait(0.002):
+            rss = self.rss_gib()
+            if rss is not None:
+                self.peak = max(self.peak or 0.0, rss)
+
+    def stop(self):
+        self.done.set()
+        self.join()
+        return self.peak
+
+
+def _garment(seed: int, h: int = 600, w: int = 460):
+    """A seeded uint8 RGB garment: ramps, stripes and noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([(x * 0.5 + y * 0.3 + 40 * seed) % 256,
+                    np.sin(x / (15 + seed)) * 100 + 128, (y / h) * 200], -1)
+    return np.clip(img + rng.normal(0, 12, img.shape), 0, 255).astype(
+        np.uint8)
+
+
+def phase_load(root):
+    """The full-width `basic` stack in bf16, written as the reference's
+    checkpoint files under `root` (`tools/write_checkpoints.py`: diffusers /
+    transformers safetensors, the monolithic IMAGDressing .pt) and loaded
+    back by `apps.loader.load_dressing_models(..., device="cuda")`: every
+    parameter bit-equal to the stack that was written. Returns (the loaded
+    stack, the loader's path arguments)."""
+    import torch
+
+    from imagdressing_tpu_torch.apps.loader import load_dressing_models
+    from imagdressing_tpu_torch.pipelines.dressing import DressingModels
+    from imagdressing_tpu_torch.tools.write_checkpoints import (
+        write_checkpoints,
+    )
+
+    models = DressingModels.init_random(0).cast(torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    paths = write_checkpoints(models, root)
+    write_s = time.perf_counter() - t0
+    sizes = {}
+    for dirpath, _, names in os.walk(root):
+        for name in names:
+            rel = os.path.relpath(os.path.join(dirpath, name), root)
+            sizes[rel] = os.path.getsize(os.path.join(dirpath, name))
+    rss_before = _RssPeak.rss_gib()
+    sampler = _RssPeak()
+    sampler.start()
+    torch.cuda.reset_peak_memory_stats()
+    base_alloc = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    loaded = load_dressing_models(**paths, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    peak_rss = sampler.stop()
+    peak_dev = torch.cuda.max_memory_allocated() - base_alloc
+    n_params = n_bytes = 0
+    mismatched = []
+    for name, module in models.modules().items():
+        want = module.state_dict()
+        have = getattr(loaded, name).state_dict()
+        if have.keys() != want.keys():
+            raise SmokeFailure(f"load: {name} keys differ")
+        for k, v in want.items():
+            n_params += v.numel()
+            n_bytes += v.numel() * v.element_size()
+            if have[k].dtype != v.dtype or not torch.equal(have[k], v):
+                mismatched.append(f"{name}.{k}")
+    emit("load", size="SD1.5 full width", dtype="bf16", write_s=write_s,
+         load_s=load_s, file_gb=sum(sizes.values()) / 1e9,
+         files_gb={k: v / 1e9 for k, v in sorted(sizes.items())},
+         params=n_params, param_gb=n_bytes / 1e9,
+         load_gb_per_s=n_bytes / 1e9 / load_s,
+         host_rss_before_gib=rss_before, peak_host_rss_gib=peak_rss,
+         load_peak_device_gib=peak_dev / 2**30,
+         bit_equal=not mismatched, ok=not mismatched)
+    if mismatched:
+        raise SmokeFailure(f"load: {len(mismatched)} parameters differ, "
+                           f"e.g. {mismatched[:3]}")
+    return loaded, paths
+
+
+class _RecordingPipe:
+    """The served pipeline, wrapped by this script (the worker is the app's,
+    unchanged): records each call's batch, seed and inputs and times it;
+    each call numbered in `held` sets its `entered` event, then waits for
+    its `release` event before it runs (so requests queue behind it); call
+    number `count` runs between a reset and a read of the launch
+    counters."""
+
+    def __init__(self, pipe, counters, held, count):
+        self.pipe, self.models, self.counters = pipe, pipe.models, counters
+        self.calls, self.count = [], count
+        self.entered = {n: threading.Event() for n in held}
+        self.release = {n: threading.Event() for n in held}
+
+    def __call__(self, **kw):
+        import torch
+
+        n = len(self.calls)
+        if n in self.release:
+            self.entered[n].set()
+            if not self.release[n].wait(900):
+                raise SmokeFailure("serve: a held call was never released")
+        call = dict(batch=kw["ref_image"].shape[0], seed=kw["seed"],
+                    inputs=kw)
+        if n == self.count:
+            for c in self.counters.values():
+                c.reset()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = self.pipe(**kw)
+        call["s"] = time.perf_counter() - t0
+        call["stage_s"] = dict(self.pipe.last_stage_seconds)
+        if n == self.count:
+            call["launches"] = {k: c.count for k, c in self.counters.items()}
+            call["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        self.calls.append(call)
+        return out
+
+
+def _wait_for(cond, what, timeout=600.0):
+    t0 = time.monotonic()
+    while not cond():
+        if time.monotonic() - t0 > timeout:
+            raise SmokeFailure(f"serve: timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def phase_serve(models, paths, counters):
+    """The port's HTTP server (`apps.serve.make_handler` on a
+    ThreadingHTTPServer at 127.0.0.1, `InferenceWorker(max_batch=4)`) over
+    the loaded stack, `basic` at 512x640, STEPS steps, bf16: one warm
+    request, held in the pipeline while 4 requests of one batch key (4
+    synthetic PNG garments) queue behind it, which the worker must run as
+    one batch-4 call (counted launches equal to `expected_launches(STEPS,
+    False, 1)`: the counts do not grow with the batch); that call held
+    while 2 requests with other seeds queue, which must run in separate
+    rounds; then 4 requests sent at once to the idle worker, none held
+    (their round trips: what four users wait). Every response a PNG of (640, 512, 3) uint8; the batch-4 images
+    bit-equal to a direct `pipe(...)` call on the same preprocessed arrays,
+    seed and batch; distinct garments, distinct images."""
+    import base64
+    import json
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+
+    from imagdressing_tpu_torch.apps import image_utils as iu
+    from imagdressing_tpu_torch.apps.png import decode_png, encode_png
+    from imagdressing_tpu_torch.apps.serve import (
+        InferenceWorker,
+        garment_inputs,
+        make_handler,
+    )
+    from imagdressing_tpu_torch.apps.tokenizer import load_tokenizer
+    from imagdressing_tpu_torch.core.config import PRESETS
+    from imagdressing_tpu_torch.pipelines.dressing import DressingPipeline
+
+    preset = dataclasses.replace(PRESETS["basic"], num_inference_steps=STEPS)
+    pipe = DressingPipeline(models, preset)
+    rec = _RecordingPipe(pipe, counters, held=(0, 1), count=1)
+    tokenizer = load_tokenizer(os.path.join(paths["base_dir"], "tokenizer"))
+    worker = InferenceWorker(rec, tokenizer, max_batch=4)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(worker, preset))
+    port = httpd.server_address[1]
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    garments = {i: _garment(i) for i in range(7)}
+    pngs = {i: encode_png(g) for i, g in garments.items()}
+    responses, errors = {}, []
+
+    def post(name, i, seed):
+        body = json.dumps({"prompt": "a woman in a dress", "seed": seed,
+                           "steps": STEPS,
+                           "cloth_image": base64.b64encode(pngs[i]).decode()})
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/dress", data=body.encode(),
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=900) as resp:
+                out = json.loads(resp.read())
+            out["round_trip_s"] = time.perf_counter() - t0
+            out["png"] = decode_png(base64.b64decode(out["image"]))
+            responses[name] = out
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"{name}: {type(e).__name__}: {e}")
+
+    def start(name, i, seed):
+        t = threading.Thread(target=post, args=(name, i, seed))
+        t.start()
+        return t
+
+    try:
+        # the warm request (call 0), held while the four queue behind it
+        threads = [start("warm", 6, 1)]
+        if not rec.entered[0].wait(900):
+            raise SmokeFailure("serve: the warm request never reached the "
+                               "pipeline")
+        for i in range(4):
+            threads.append(start(f"b4_{i}", i, 42))
+            _wait_for(lambda n=i + 1: worker.queue.qsize() == n,
+                      f"{i + 1} queued requests")
+        rec.release[0].set()
+        # the batch-4 call (call 1), held while two requests of other seeds
+        # queue behind it
+        if not rec.entered[1].wait(900):
+            raise SmokeFailure("serve: the queued requests never ran")
+        for j, seed in enumerate((5, 6)):
+            threads.append(start(f"seed_{seed}", 4 + j, seed))
+            _wait_for(lambda n=j + 1: worker.queue.qsize() == n,
+                      f"{j + 1} queued requests")
+        rec.release[1].set()
+        for t in threads:
+            t.join(1200)
+            if t.is_alive():
+                raise SmokeFailure("serve: a request never returned")
+        # four requests sent at once to the idle worker, none held: what
+        # four users wait, the app's PNG decode, preparation and encode
+        # included (the worker batches whatever has queued when it looks)
+        free = [start(f"free_{i}", i, 43) for i in range(4)]
+        for t in free:
+            t.join(1200)
+            if t.is_alive():
+                raise SmokeFailure("serve: a request never returned")
+    finally:
+        for ev in rec.release.values():
+            ev.set()
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(30)
+    if errors:
+        raise SmokeFailure(f"serve: {errors}")
+    h, w = preset.height, preset.width
+    for name, r in responses.items():
+        if r["png"].shape != (h, w, 3) or r["png"].dtype != np.uint8:
+            raise SmokeFailure(f"serve: {name} answered {r['png'].shape} "
+                               f"{r['png'].dtype}")
+    rounds = [(c["batch"], c["seed"]) for c in rec.calls]
+    if rounds[:2] != [(1, 1), (4, 42)] or sorted(rounds[2:4]) != [(1, 5),
+                                                                (1, 6)] \
+            or {sd for _, sd in rounds[4:]} != {43} \
+            or sum(b for b, _ in rounds[4:]) != 4:
+        raise SmokeFailure(f"serve: pipeline calls {rounds}, expected the "
+                           "warm call, one batch of 4, two single rounds, "
+                           "then the four unheld requests")
+    b4 = rec.calls[1]
+    # the same arrays, prepared by this script, through the pipeline directly
+    clip_size = models.vision_cfg.image_size
+    prepped = [garment_inputs(iu.read_image(pngs[i]), preset, clip_size)
+               for i in range(4)]
+    direct = pipe(
+        prompt_ids=np.stack([tokenizer("a woman in a dress")] * 4),
+        negative_prompt_ids=np.stack([tokenizer(iu.DEFAULT_NEGATIVE)] * 4),
+        ref_image=np.concatenate([p[0] for p in prepped]),
+        ref_clip_image=np.concatenate([p[1] for p in prepped]),
+        seed=42, num_inference_steps=STEPS, output_uint8=True)
+    served = np.stack([responses[f"b4_{i}"]["png"] for i in range(4)])
+    same_inputs = all(np.array_equal(b4["inputs"][k], np.concatenate(
+        [p[j] for p in prepped])) for j, k in enumerate(("ref_image",
+                                                          "ref_clip_image")))
+    bit_equal = bool(np.array_equal(served, direct))
+    distinct = all(not np.array_equal(served[a], served[b])
+                   for a in range(4) for b in range(a + 1, 4))
+    want = expected_launches(STEPS, False, 1)
+    emit("serve", preset="basic", size=f"{w}x{h}", steps=STEPS,
+         dtype="bf16", max_batch=4, rounds=rounds,
+         batch4_call_s=b4["s"], images_per_min_b4=4 * 60.0 / b4["s"],
+         batch1_call_s=[c["s"] for c in rec.calls if c["batch"] == 1],
+         batch4_stage_s=b4["stage_s"], batch4_peak_gib=b4["peak_gib"],
+         batch4_round_trip_s=[responses[f"b4_{i}"]["round_trip_s"]
+                              for i in range(4)],
+         unheld4_rounds=[b for b, _ in rounds[4:]],
+         unheld4_call_s=[c["s"] for c in rec.calls[4:]],
+         unheld4_round_trip_s=[responses[f"free_{i}"]["round_trip_s"]
+                               for i in range(4)],
+         launches=b4["launches"], expected_launches=want,
+         inputs_match_direct_prep=same_inputs, bit_equal_direct=bit_equal,
+         distinct_garments_distinct_images=distinct,
+         ok=bit_equal and distinct and same_inputs
+         and b4["launches"] == want)
+    if b4["launches"] != want:
+        raise SmokeFailure(f"serve: batch-4 launches {b4['launches']} != "
+                           f"{want}")
+    if not same_inputs:
+        raise SmokeFailure("serve: the worker's arrays differ from this "
+                           "script's preparation of the same PNGs")
+    if not bit_equal:
+        raise SmokeFailure("serve: the served batch differs from the direct "
+                           "pipeline call")
+    if not distinct:
+        raise SmokeFailure("serve: two garments gave the same image")
+    # the worker thread lives on, idle: let it drop the stack
+    rec.pipe = rec.models = None
+
+
+def phase_dress(paths):
+    """`apps.dress.main` on a folder of 5 PNG garments, `--batch_size 4`
+    (one full chunk, one ragged chunk padded to 4), `--device cuda`, loading
+    from the same files: 5 collages [garment | result] of (640, 1024, 3)
+    under the garments' names; the wall time of each chunk's pipeline
+    call."""
+    from imagdressing_tpu_torch.apps import dress
+    from imagdressing_tpu_torch.apps import image_utils as iu
+    from imagdressing_tpu_torch.core.config import PRESETS
+    from imagdressing_tpu_torch.pipelines import dressing
+
+    root = os.path.dirname(paths["base_dir"])
+    cloth_dir, out_dir = (os.path.join(root, d) for d in ("cloths", "out"))
+    os.makedirs(cloth_dir)
+    names = [f"cloth_{i}.png" for i in range(5)]
+    for i, name in enumerate(names):
+        iu.write_image(os.path.join(cloth_dir, name), _garment(20 + i))
+    chunks = []
+    call = dressing.DressingPipeline.__call__
+
+    def timed(self, **kw):
+        t0 = time.perf_counter()
+        out = call(self, **kw)
+        chunks.append(dict(batch=kw["ref_image"].shape[0],
+                           s=time.perf_counter() - t0))
+        return out
+
+    dressing.DressingPipeline.__call__ = timed
+    t0 = time.perf_counter()
+    try:
+        dress.main(["--base_dir", paths["base_dir"],
+                    "--vae_path", paths["vae_path"],
+                    "--image_encoder_path", paths["image_encoder_path"],
+                    "--model_ckpt", paths["model_ckpt"],
+                    "--cloth_dir", cloth_dir, "--batch_size", "4",
+                    "--num_inference_steps", str(STEPS),
+                    "--output_path", out_dir, "--device", "cuda"])
+    finally:
+        dressing.DressingPipeline.__call__ = call
+    wall_s = time.perf_counter() - t0
+    saved = sorted(os.listdir(out_dir))
+    shapes = {n: iu.read_image(os.path.join(out_dir, n)).shape for n in saved}
+    preset = PRESETS["basic"]
+    want = (preset.height, 2 * preset.width, 3)
+    ok = saved == names and all(s == want for s in shapes.values()) \
+        and [c["batch"] for c in chunks] == [4, 4]
+    emit("dress", garments=len(names), batch_size=4, steps=STEPS,
+         wall_s=wall_s, chunk_s=[c["s"] for c in chunks],
+         chunk_batches=[c["batch"] for c in chunks],
+         load_and_prep_s=wall_s - sum(c["s"] for c in chunks),
+         saved=saved, collage_shapes={k: list(v) for k, v in shapes.items()},
+         ok=ok)
+    if not ok:
+        raise SmokeFailure(f"dress: saved {saved} {shapes}, chunks {chunks}")
+    collage = iu.read_image(os.path.join(out_dir, names[0]))
+    if collage[:, preset.width:].std() == 0:
+        raise SmokeFailure("dress: a constant result")
+
+
 def phase_train(counters):
     """The training step at full SD1.5 width, 512x640, batch 1."""
     import torch
@@ -1545,6 +1989,12 @@ def main() -> int:
                              "flash_bwd_dkv": fa.DKV_COUNTER,
                              "flash_bwd_dq": fa.DQ_COUNTER})
         counts["bn_act"] = phase_parse(fba.COUNTER)
+        with tempfile.TemporaryDirectory(prefix="_ckpt_smoke_",
+                                         dir=ROOT) as root:
+            models, paths = phase_load(root)
+            phase_serve(models, paths, inference)
+            del models
+            phase_dress(paths)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1

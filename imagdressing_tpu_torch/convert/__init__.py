@@ -13,38 +13,57 @@ changes, once, here:
   * `embedding`                      -> `weight`
   * ref and IP adapters keyed by layer name -> `unet.adapter_key(name)`
                                         modules
+
+A leaf may be a numpy array or a torch tensor (the checkpoint converters of
+`convert/torch_sd.py` keep a file's tensors in their dtype).
+`tree_from_module` is the inverse: a port module's parameters as the JAX
+tree, for `convert/export_torch.py`.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from imagdressing_tpu_torch.models.unet import adapter_key
+from imagdressing_tpu_torch.ops.nn import (
+    Conv2d,
+    Embedding,
+    Linear,
+    Norm,
+    Upsample2xConv,
+)
 
 StateDict = Dict[str, torch.Tensor]
+Leaf = Union[np.ndarray, torch.Tensor]
 
 
 def _leaves(tree: Any, path: Tuple[str, ...] = ()
-            ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+            ) -> Iterator[Tuple[Tuple[str, ...], Leaf]]:
     if isinstance(tree, dict):
         for k, v in tree.items():
             yield from _leaves(v, path + (str(k),))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from _leaves(v, path + (str(i),))
+    elif torch.is_tensor(tree):
+        yield path, tree
     elif tree is not None:
         yield path, np.asarray(tree)
 
 
-def _convert_leaf(path: Tuple[str, ...], arr: np.ndarray
+def _convert_leaf(path: Tuple[str, ...], arr: Leaf
                   ) -> Tuple[str, torch.Tensor]:
     *prefix, last = path
-    if arr.dtype.kind not in "fiub":  # e.g. bfloat16 arrays: not numpy's own
-        arr = arr.astype(np.float32)
-    t = torch.tensor(arr)
+    if torch.is_tensor(arr):
+        t = arr.detach()
+    else:
+        if arr.dtype.kind not in "fiub":  # e.g. bfloat16: not numpy's own
+            arr = arr.astype(np.float32)
+        t = torch.tensor(arr)
     if last == "kernel":
         if t.ndim == 2:
             t = t.t()
@@ -61,6 +80,45 @@ def _convert_leaf(path: Tuple[str, ...], arr: np.ndarray
 def state_dict_from_jax(tree: Any) -> StateDict:
     """One model's JAX parameter tree -> the port module's state dict."""
     return dict(_convert_leaf(p, a) for p, a in _leaves(tree))
+
+
+# the port's module classes whose `weight` is a JAX `kernel`, `scale` or
+# `embedding`; every other parameter keeps its name and layout
+_KERNEL_MODULES = (Linear, Conv2d, Upsample2xConv)
+
+
+def tree_from_module(module: nn.Module) -> Dict[str, Any]:
+    """A port module's parameters -> the JAX package's tree of that model
+    (nested dicts, lists where the path holds indices), leaves are detached
+    torch tensors in the module's dtype and on its device: the exact inverse
+    of `state_dict_from_jax`, so `state_dict_from_jax(tree_from_module(m))`
+    equals `m.state_dict()`."""
+    root: Dict[str, Any] = {}
+    for mname, mod in module.named_modules():
+        for pname, p in mod.named_parameters(recurse=False):
+            t = p.detach()
+            if pname == "weight" and isinstance(mod, _KERNEL_MODULES):
+                pname = "kernel"
+                t = t.t() if t.ndim == 2 else t.permute(2, 3, 1, 0)
+            elif pname == "weight" and isinstance(mod, Norm):
+                pname = "scale"
+            elif pname == "weight" and isinstance(mod, Embedding):
+                pname = "embedding"
+            node = root
+            for part in (mname.split(".") if mname else []):
+                node = node.setdefault(part, {})
+            node[pname] = t
+    return _lists(root)
+
+
+def _lists(node: Any) -> Any:
+    """Dicts keyed "0".."n-1" -> lists, recursively."""
+    if not isinstance(node, dict):
+        return node
+    out = {k: _lists(v) for k, v in node.items()}
+    if out and all(k.isdigit() for k in out):
+        return [out[str(i)] for i in range(len(out))]
+    return out
 
 
 def parsing_params_from_jax(atr_tree: Any, lip_tree: Any

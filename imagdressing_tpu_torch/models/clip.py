@@ -19,6 +19,10 @@ from imagdressing_tpu_torch.ops.nn import (
     quick_gelu,
 )
 
+# CLIPImageProcessor's normalisation (the JAX package's models/clip.py)
+CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
+
 
 class SelfAttn(nn.Module):
     def __init__(self, hidden: int):

@@ -9,7 +9,7 @@
 
 each with the DDIM (eta >= 0), DPM-Solver++(2M) or UniPC sampler.
 
-Structure, as in the JAX package: the garment UNet runs once at batch 1 in
+Structure, as in the JAX package: the garment UNet runs once per call in
 capture mode; garment, text and IP K/V and the ControlNet's conditioning
 embedding are computed once, before the sampling loop; CFG is one batch-2B
 UNet call per step with the per-row garment scale [0, s], so only the cond
@@ -84,9 +84,11 @@ def resolve_device(device: Device) -> torch.device:
     return dev
 
 
-def _configs(small: bool) -> Dict[str, object]:
-    """The full SD1.5 stack, or the JAX package's `small=True` test stack
-    (the ProjPlus config is used where the stack has IP adapters)."""
+def model_configs(small: bool = False) -> Dict[str, object]:
+    """{unet_cfg, vae_cfg, text_cfg, vision_cfg, resampler_cfg,
+    projplus_cfg}: the full SD1.5 stack, or the JAX package's `small=True`
+    test stack (the ProjPlus config is used where the stack has IP
+    adapters)."""
     if not small:
         return dict(unet_cfg=UNetConfig(), vae_cfg=VAEConfig(),
                     text_cfg=CLIPTextConfig(), vision_cfg=CLIPVisionConfig(),
@@ -139,13 +141,16 @@ class DressingModels:
     projplus_cfg: Optional[ProjPlusConfig] = None
 
     @classmethod
-    def _build(cls, small: bool, device: torch.device,
-               with_controlnet: bool = False,
-               with_ipa: bool = False) -> "DressingModels":
-        cfgs = _configs(small)
+    def _build(cls, configs: Dict[str, object], device: torch.device,
+               with_controlnet: bool = False, with_ipa: bool = False,
+               dtype: torch.dtype = torch.float32) -> "DressingModels":
+        """The modules of `configs` (`model_configs`' keys) in `dtype` on
+        `device`, their parameters allocated and not initialised: built on
+        the meta device, then materialised with `to_empty`."""
+        cfgs = dict(configs)
         projplus_cfg = cfgs.pop("projplus_cfg")
         ucfg = cfgs["unet_cfg"]
-        with torch.device(device):
+        with torch.device("meta"):
             unet = UNet(ucfg)
             models = dict(
                 unet=unet, ref_unet=UNet(ucfg),
@@ -161,7 +166,7 @@ class DressingModels:
                 models["ip_adapters"] = IPAdapters(ucfg)
                 models["proj_plus"] = ProjPlus(projplus_cfg)
         for m in models.values():
-            m.eval().requires_grad_(False)
+            m.to(dtype).to_empty(device=device).eval().requires_grad_(False)
         return cls(**cfgs, **models)
 
     @classmethod
@@ -175,13 +180,36 @@ class DressingModels:
         The ref adapters start as clones of the main UNet's attn1
         to_k/to_v; the ControlNet's output convs start at zero."""
         dev = resolve_device(device)
-        models = cls._build(small, dev, with_controlnet, with_ipa)
+        models = cls._build(model_configs(small), dev, with_controlnet,
+                            with_ipa)
         gen = torch.Generator(device=dev).manual_seed(seed)
         for name, module in models.modules().items():
             if name != "ref_adapters":
                 init_module(module, gen)
         models.ref_adapters = init_ref_adapters_from_unet(models.unet)
         models.ref_adapters.eval().requires_grad_(False)
+        return models
+
+    @classmethod
+    def from_state_dicts(cls, state_dicts: Dict[str, Dict[str, torch.Tensor]],
+                         configs: Dict[str, object], *,
+                         device: Device = "cuda",
+                         dtype: torch.dtype = torch.float32
+                         ) -> "DressingModels":
+        """The stack of `configs` (`model_configs`' keys) holding
+        `state_dicts` ({model name: state dict}, as `convert.params_from_jax`
+        returns them) in `dtype` on `device`; a `controlnet` / `ip_adapters`
+        entry builds those models. No random initialisation: every
+        parameter is allocated once and copied from its state dict (strict:
+        every model of `MODEL_NAMES` needs one, with matching keys)."""
+        missing = [n for n in MODEL_NAMES if n not in state_dicts]
+        if missing:
+            raise KeyError(f"no state dict for {missing}")
+        models = cls._build(configs, resolve_device(device),
+                            "controlnet" in state_dicts,
+                            "ip_adapters" in state_dicts, dtype)
+        for name, sd in state_dicts.items():
+            getattr(models, name).load_state_dict(sd)
         return models
 
     @classmethod
@@ -192,11 +220,8 @@ class DressingModels:
         numpy arrays, see `convert.params_from_jax`) into the port's
         modules; `small` picks the same configs as the JAX stack's, and the
         tree's `controlnet` / `ip_adapters` entries build those models."""
-        models = cls._build(small, resolve_device(device),
-                            "controlnet" in params, "ip_adapters" in params)
-        for name, sd in params_from_jax(params).items():
-            getattr(models, name).load_state_dict(sd)
-        return models
+        return cls.from_state_dicts(params_from_jax(params),
+                                    model_configs(small), device=device)
 
     def cast(self, dtype: torch.dtype) -> "DressingModels":
         """Cast every parameter in place (bf16 for production inference);
@@ -376,7 +401,7 @@ class DressingPipeline:
                                penultimate=True)
         cloth_tokens = m.resampler(clip_hidden)
         clock.mark("garment_tokens")
-        # 3. garment latents and the capture run (batch 1, t = 0)
+        # 3. garment latents and the capture run (batch B, t = 0)
         ref_latents = m.vae.encode_mean(ref_image.to(cd)) * sf
         clock.mark("vae_encode")
         _, captured = m.ref_unet(ref_latents, 0, cloth_tokens, capture=True)

@@ -22,8 +22,9 @@ K3's mode, cluster and slab.
 
 Usage (on the card's machine, from the repository root):
     python -m imagdressing_tpu_torch.tools.profile_infer [WxH] [steps]
-        [--preset basic|cartoon|pose|ipa_pose|inpaint]
-(the size defaults to the preset's: 512x640, inpaint 512x512)
+        [--preset basic|cartoon|pose|ipa_pose|inpaint] [--batch B]
+(the size defaults to the preset's: 512x640, inpaint 512x512; B images per
+call, default 1: the UNet runs at the CFG batch 2B)
 """
 
 from __future__ import annotations
@@ -164,9 +165,14 @@ def _flash_call(b, s, h, d, dual):
     qkv = [torch.randn((b, s, h, d), device="cuda", dtype=torch.bfloat16)
            for _ in range(5 if dual else 3)]
     if dual:
-        qkv.append(torch.tensor([0.0, 1.0] if b == 2 else [1.0] * b,
-                                device="cuda"))
+        qkv.append(torch.tensor(_ref_scale(b), device="cuda"))
     return lambda: flash_attention(*qkv)
+
+
+def _ref_scale(b):
+    """The garment scales of a dual call: an even batch is a CFG batch
+    [0 (uncond) x b/2, 1 (cond) x b/2], an odd one all 1 (training)."""
+    return [0.0] * (b // 2) + [1.0] * (b // 2) if b % 2 == 0 else [1.0] * b
 
 
 def _flash_flops(b, s, h, d, dual):
@@ -174,9 +180,9 @@ def _flash_flops(b, s, h, d, dual):
 
 
 def _flash_exp2(b, s, h, d, dual):
-    # one per (q, k) pair and source run; _flash_call's scales: a batch of 2
-    # is a CFG batch [0, 1], whose scale-0 row skips the garment pass
-    ref_rows = (1 if b == 2 else b) if dual else 0
+    # one per (q, k) pair and source run; the scale-0 rows of a CFG batch
+    # skip the garment pass
+    ref_rows = sum(x != 0 for x in _ref_scale(b)) if dual else 0
     return float(h * s * s * (b + ref_rows))
 
 
@@ -292,7 +298,8 @@ def _unet_calls(models, h: int, w: int, ipa: bool):
     return controlnet, unet
 
 
-def main(size: str = None, steps: int = 30, preset: str = "basic") -> dict:
+def main(size: str = None, steps: int = 30, preset: str = "basic",
+         batch: int = 1) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -311,7 +318,7 @@ def main(size: str = None, steps: int = 30, preset: str = "basic") -> dict:
                               num_inference_steps=steps)
     models = preset_models(cfg)
     pipe = DressingPipeline(models, cfg)
-    kw = dict(preset_inputs(1, h, w), output_uint8=True)
+    kw = dict(preset_inputs(batch, h, w), output_uint8=True)
     pipe(**kw)  # warm: kernel build, library handles, allocator
     for counter in (fa.COUNTER, fgc.COUNTER, fg.COUNTER):
         counter.reset()
@@ -335,7 +342,7 @@ def main(size: str = None, steps: int = 30, preset: str = "basic") -> dict:
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]
     result = dict(
         device=torch.cuda.get_device_name(0), preset=preset, size=size,
-        steps=steps,
+        steps=steps, batch=batch,
         wall_ms=wall * 1e3, device_ms=device_ms,
         device_busy_share=device_ms / (wall * 1e3),
         stage_ms={k: v * 1e3 for k, v in pipe.last_stage_seconds.items()},
@@ -371,5 +378,7 @@ if __name__ == "__main__":
     ap.add_argument("size", nargs="?", help="WxH (default: the preset's)")
     ap.add_argument("steps", nargs="?", type=int, default=30)
     ap.add_argument("--preset", default="basic")
+    ap.add_argument("--batch", type=int, default=1,
+                    help="images per call (the server batches up to 4)")
     a = ap.parse_args(sys.argv[1:])
-    main(a.size, a.steps, a.preset)
+    main(a.size, a.steps, a.preset, a.batch)

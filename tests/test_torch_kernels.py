@@ -137,13 +137,20 @@ def test_flash_bf16_matches_pallas_interpret(fa_interpret):
                                atol=2.0 ** -8 + 4e-3, rtol=0)
 
 
+# the batches the full-width paths run: the UNets at 1 (the garment pass, a
+# training step), 2 (a CFG step of one image) and 8 (a CFG step of the
+# server's batch of 4); the VAE at 1, 2 and 4
+UNET_BATCHES = (1, 2, 8)
+VAE_BATCHES = (1, 2, 4)
+
+
 def _full_width_flash_shapes():
     """(b, sq, h, d) of every flash forward (K1, and K5 under a gradient) of
     the full-width paths at 512x640 (`basic`, `pose`, `ipa_pose`, training)
     and 512x512 (`inpaint`): each UNet self-attention level with attention
-    (main and garment UNet and the ControlNet's trunk, batch 2 and 1) and
-    the VAE's single-head mid attention; then the same for the tiny test
-    stacks (`small=True` and `chip_smoke.py`'s mini stack, 64x64 images)
+    (main and garment UNet and the ControlNet's trunk, UNET_BATCHES) and
+    the VAE's single-head mid attention (VAE_BATCHES); then the same for the
+    tiny test stacks (`small=True` and `chip_smoke.py`'s mini stack, 64x64 images)
     where the head dim meets the card's rule (a multiple of 8). The
     `concat` self-attention's 2S keys and the garment-cross branch run at
     these q shapes: the plan has no key length."""
@@ -160,12 +167,13 @@ def _full_width_flash_shapes():
         lh, lw = hh // 8, ww // 8
         levels = [lvl for lvl, a in enumerate(u.down_block_has_attn) if a]
         levels.append(len(u.block_out_channels) - 1)  # the mid block
-        for b in (1, 2):
+        for b in UNET_BATCHES:
             for lvl in levels:
                 d = u.block_out_channels[lvl] // u.attention_num_heads
                 if d % 8 == 0:
                     shapes.add((b, (lh >> lvl) * (lw >> lvl),
                                 u.attention_num_heads, d))
+        for b in VAE_BATCHES:
             shapes.add((b, lh * lw, 1, v.block_out_channels[-1]))
     return sorted(shapes)
 
@@ -182,7 +190,9 @@ def test_flash_plan_keeps_the_kernel_limits():
     shapes = _full_width_flash_shapes()
     assert (2, 5120, 8, 40) in shapes and (2, 80, 8, 160) in shapes \
         and (1, 5120, 1, 512) in shapes and (2, 64, 4, 8) in shapes \
-        and (2, 4096, 8, 40) in shapes and (1, 4096, 1, 512) in shapes
+        and (2, 4096, 8, 40) in shapes and (1, 4096, 1, 512) in shapes \
+        and (8, 5120, 8, 40) in shapes and (8, 1280, 8, 80) in shapes \
+        and (4, 5120, 1, 512) in shapes
     assert {d for *_, d in shapes if d > tfa.MAX_GRAD_HEAD_DIM} == {512}
     for b, sq, h, d in shapes:
         for dual in (True, False):
@@ -379,10 +389,9 @@ def _full_width_gn_conv_shapes():
     """(b, h, w, cin, cout) of every GN+SiLU+conv3x3 of the full-width paths
     at 512x640 (`basic`, `pose`, `ipa_pose`, training) and 512x512
     (`inpaint`): the UNet's resnets (main and garment UNet; the ControlNet's
-    trunk runs the down and mid ones) at the latent size, batch 2 (CFG) and
-    1 (the garment pass, training), and the VAE's encoder and decoder
-    resnets at batch 1 and 2; each resnet's conv1 (cin -> cout) and conv2
-    (cout -> cout)."""
+    trunk runs the down and mid ones) at the latent size, UNET_BATCHES, and
+    the VAE's encoder and decoder resnets at VAE_BATCHES; each resnet's
+    conv1 (cin -> cout) and conv2 (cout -> cout)."""
     u, v = UNetConfig(), VAEConfig()
     res = []  # (level, cin, cout) of each resnet
     ch, nl = u.block_out_channels, u.layers_per_block
@@ -401,7 +410,7 @@ def _full_width_gn_conv_shapes():
             cin = co
     shapes = set()
     sizes = ((640, 512), (512, 512))
-    for b in (1, 2):
+    for b in UNET_BATCHES:
         for (ih, iw), (lvl, ci, co) in itertools.product(sizes, res):
             h, w = (ih // 8) >> lvl, (iw // 8) >> lvl
             shapes |= {(b, h, w, ci, co), (b, h, w, co, co)}
@@ -415,7 +424,7 @@ def _full_width_gn_conv_shapes():
         for _ in range(v.layers_per_block + 1):  # decoder, 80x64 up
             vres.append((lvl, cin, co))
             cin = co
-    for b in (1, 2):
+    for b in VAE_BATCHES:
         for (ih, iw), (lvl, ci, co) in itertools.product(sizes, vres):
             h, w = ih >> lvl, iw >> lvl
             shapes |= {(b, h, w, ci, co), (b, h, w, co, co)}
@@ -432,7 +441,8 @@ def test_conv_plan_keeps_the_kernel_limits():
     assert (2, 10, 8, 2560, 1280) in shapes and (1, 640, 512, 256, 128) \
         in shapes and (2, 80, 64, 960, 320) in shapes \
         and (2, 8, 8, 2560, 1280) in shapes and (1, 512, 512, 256, 128) \
-        in shapes
+        in shapes and (8, 80, 64, 320, 320) in shapes \
+        and (4, 640, 512, 256, 128) in shapes
     for b, h, w, cin, co in shapes:
         p = fgc.conv_plan(b, h, w, cin, co)
         what = (b, h, w, cin, co, p)
@@ -455,15 +465,15 @@ def _full_width_group_norm_shapes():
     """(b, m, c, act) of every GroupNorm of the full-width paths at 512x640
     and 512x512 and of the VAE's encode and decode: K3 at each UNet level
     (transformer in-norms of the UNets and the ControlNet's trunk, act none;
-    conv_norm_out, silu) at batch 1 and 2, and the GN+SiLU prologue of every
-    GN+conv (K2, K4)."""
+    conv_norm_out, silu) at the UNET_BATCHES, and the GN+SiLU prologue of
+    every GN+conv (K2, K4)."""
     u = UNetConfig()
     latents = ((80, 64), (64, 64))
     shapes = {(b, (lh >> lvl) * (lw >> lvl), ch, "none")
-              for b in (1, 2) for lh, lw in latents
+              for b in UNET_BATCHES for lh, lw in latents
               for lvl, ch in enumerate(u.block_out_channels)}
     shapes |= {(b, lh * lw, u.block_out_channels[0], "silu")
-               for b in (1, 2) for lh, lw in latents}
+               for b in UNET_BATCHES for lh, lw in latents}
     shapes |= {(b, h * w, cin, "silu")
                for b, h, w, cin, _ in _full_width_gn_conv_shapes()}
     return sorted(shapes)
@@ -483,7 +493,9 @@ def test_gn_plan_keeps_the_kernel_limits():
     assert (2, 5120, 320, "none") in shapes and (1, 327680, 256, "silu") \
         in shapes and (2, 80, 1280, "none") in shapes \
         and (2, 4096, 320, "none") in shapes and (2, 64, 1280, "none") \
-        in shapes and (1, 262144, 128, "silu") in shapes
+        in shapes and (1, 262144, 128, "silu") in shapes \
+        and (8, 5120, 320, "none") in shapes \
+        and (4, 327680, 256, "silu") in shapes
     modes = {}
     for b, m, c, act in shapes:
         for dtype in (torch.bfloat16, torch.float32):

@@ -269,18 +269,33 @@ def test_selective_remat_is_not_ported(small_unet, policy):
 
 def test_port_imports_no_jax():
     """No module of the port, nor `chip_smoke.py` or the card tests (both run
-    where JAX is not installed), imports jax, flax or the JAX package. Read
-    from the source: the interpreter's site setup may preload jax, so
-    `sys.modules` cannot tell."""
-    banned = ("jax", "jaxlib", "flax", "imagdressing_tpu")
+    where JAX is not installed), imports jax, flax or the JAX package, nor
+    orbax, safetensors, cv2 or transformers (the port reads checkpoints and
+    images itself); PIL only inside a function (JPEG), never at module
+    level. Read from the source: the interpreter's site setup may preload
+    jax, so `sys.modules` cannot tell."""
+    banned = ("jax", "jaxlib", "flax", "imagdressing_tpu", "orbax",
+              "safetensors", "cv2", "transformers")
     files = sorted(PORT_DIR.rglob("*.py")) + [
         PORT_DIR.parent / "chip_smoke.py",
         PORT_DIR.parent / "tests" / "test_torch_gpu.py"]
     assert len(files) > 10
-    # the preset slice's modules are among them
-    assert {"controlnet.py", "dpm.py", "unipc.py"} <= {f.name for f in files}
+    # the preset slice's modules and the apps slice's are among them
+    names = {str(f.relative_to(PORT_DIR.parent)) for f in files}
+    port = "imagdressing_tpu_torch/"
+    assert {port + m for m in (
+        "models/controlnet.py", "samplers/dpm.py", "samplers/unipc.py",
+        "convert/torch_sd.py", "convert/export_torch.py", "apps/loader.py",
+        "apps/tokenizer.py", "apps/image_utils.py", "apps/png.py",
+        "apps/serve.py", "apps/dress.py", "preprocess/face.py",
+        "train/data.py", "tools/write_checkpoints.py")} <= names
     for path in files:
-        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        tree = ast.parse(path.read_text(), str(path))
+        in_functions = {id(n) for f in ast.walk(tree)
+                        if isinstance(f, (ast.FunctionDef,
+                                          ast.AsyncFunctionDef))
+                        for n in ast.walk(f)}
+        for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom):
@@ -290,3 +305,5 @@ def test_port_imports_no_jax():
             for name in names:
                 top = name.split(".")[0]
                 assert top not in banned, f"{path}: imports {name}"
+                assert top != "PIL" or id(node) in in_functions, \
+                    f"{path}: imports PIL at module level"
