@@ -67,7 +67,18 @@ Phases, each printing one line:
      to a direct call on the same arrays; other seeds in their own rounds;
      the batch-4 latency, images per minute, stage times, peak memory;
  13. dress: `apps.dress.main` on a folder of 5 PNG garments at batch 4 (one
-     chunk padded), loading from the same files: 5 collages, wall per chunk.
+     chunk padded), loading from the same files: 5 collages, wall per chunk;
+ 14. openpose_check: the OpenPose body, hand and face nets at full width,
+     random weights, on the card and on the CPU (TF32 off): their maps and
+     keypoints;
+ 15. person: `preprocess/mask.person_upper_body_mask` from the written
+     preprocessing checkpoints (`write_checkpoints --preprocess`) on a
+     600x460 photo, card vs CPU, then timed stages (OpenPose, parse, mask);
+ 16. dress_person: `apps.dress.main --preset inpaint --model_dir --cloth_dir`
+     (2 persons x 2 garments) with a written ControlNet: 4 collages, K1-K4
+     launches as derived, K7 once per person;
+ 17. serve_fusion: the server with `--post_process face_fusion:<facenet>`,
+     one request with a face and one without, against direct calls.
 Then the per-kernel JSON line, the `nvidia-smi` line, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 Without a card, or without the rest of the repository, it exits non-zero.
@@ -1937,6 +1948,372 @@ def phase_parse(counter):
     return launches
 
 
+# the OpenPose nets, card (TF32 off) vs CPU: fp32 sum-order differences
+# through 30-40 cuDNN convs, relative to max|ref|, as PARSE_RTOL
+OPENPOSE_RTOL = 1e-3
+# the person mask, card (TF32 off) vs CPU: a share of pixels; the parse
+# beneath it is held at PARSE_AGREE, and the mask's dilations widen a
+# flipped parse pixel into a 21x21 patch at most
+MASK_AGREE = 0.99
+
+
+def _max_err(got, want, rtol):
+    import torch
+
+    got, want = torch.as_tensor(got).float(), torch.as_tensor(want).float()
+    ref = want.abs().max().item()
+    return dict(max_abs_err=(got - want).abs().max().item(), max_abs_ref=ref,
+                tol=rtol * ref, finite=bool(torch.isfinite(got).all()))
+
+
+def phase_openpose_check():
+    """The OpenPose body, hand and face nets at full width, on the card and
+    on the CPU with the same random weights, TF32 off: the body's PAF and
+    heatmap at a 384x512 person photo's size (the net at 184x138), the
+    hand's heatmaps of a 368-px crop at scale 1 (128x128), the face's of a
+    384-px crop (384x384); then each side's keypoints."""
+    import numpy as np
+    import torch
+
+    from imagdressing_tpu_torch.preprocess.openpose.face import Face, FaceNet
+    from imagdressing_tpu_torch.preprocess.openpose.hand import (
+        Hand,
+        HandPoseNet,
+    )
+    from imagdressing_tpu_torch.preprocess.openpose.infer import OpenPose
+    from imagdressing_tpu_torch.preprocess.openpose.model import BodyPoseNet
+    from imagdressing_tpu_torch.tools.profile_parse import person_photo
+
+    body = person_photo(512, 384, 2)
+    hand_crop = person_photo(368, 368, 3)[..., ::-1].copy()
+    face_crop = person_photo(384, 384, 4)[..., ::-1].copy()
+    pairs = {}
+    for name, cls, wrap, seed in (("body", BodyPoseNet, OpenPose, 0),
+                                  ("hand", HandPoseNet, Hand, 1),
+                                  ("face", FaceNet, Face, 2)):
+        net = cls.init_random(seed, "cpu")
+        pairs[name] = (wrap(net, "cpu"), wrap(copy.deepcopy(net), "cuda"))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    errs, keypoints = {}, {}
+    try:
+        cpu, gpu = pairs["body"]
+        want = cpu.maps(torch.from_numpy(body))
+        got = gpu.maps(torch.from_numpy(body).cuda())
+        for name, g, w in zip(("paf", "heatmap"), got, want):
+            errs[name] = _max_err(g.cpu(), w, OPENPOSE_RTOL)
+        keypoints["body"] = [p(body)["pose_keypoints_2d"] for p in pairs[
+            "body"]]
+        cpu, gpu = pairs["hand"]
+        errs["hand"] = _max_err(
+            gpu.heatmaps(torch.from_numpy(hand_crop).cuda(), 368, 128),
+            cpu.heatmaps(torch.from_numpy(hand_crop), 368, 128),
+            OPENPOSE_RTOL)
+        keypoints["hand"] = [p(hand_crop, scales=(1.0,)).tolist()
+                             for p in pairs["hand"]]
+        cpu, gpu = pairs["face"]
+        errs["face"] = _max_err(gpu.heatmaps(face_crop),
+                                cpu.heatmaps(face_crop), OPENPOSE_RTOL)
+        keypoints["face"] = [p(face_crop).tolist() for p in pairs["face"]]
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    equal = {k: v[0] == v[1] for k, v in keypoints.items()}
+    found = {k: int((np.asarray(v[1]) != 0).any(-1).sum())
+             for k, v in keypoints.items()}
+    ok = all(e["finite"] and e["max_abs_err"] <= e["tol"]
+             for e in errs.values())
+    emit("openpose_check", body="384x512 photo (net 184x138)",
+         hand="368 crop, scale 1", face="384 crop", rtol=OPENPOSE_RTOL,
+         maps=errs, keypoints_found_card=found, keypoints_equal=equal,
+         keypoints_card={k: v[1] for k, v in keypoints.items()},
+         keypoints_cpu={k: v[0] for k, v in keypoints.items()}, ok=ok)
+    if not ok:
+        raise SmokeFailure(f"OpenPose card vs CPU: {errs}")
+
+
+def write_preprocess(root):
+    """The person path's and the face fusion's random full-width nets as
+    the reference's files under `root` (`write_checkpoints --preprocess`),
+    the environment variables that name them set; -> the paths."""
+    from imagdressing_tpu_torch.tools.write_checkpoints import (
+        write_preprocess_checkpoints,
+    )
+
+    paths = write_preprocess_checkpoints(root, 0, "cuda")
+    for k, v in paths.items():
+        if k.startswith("IMAGDRESSING_"):
+            os.environ[k] = v
+    return paths
+
+
+def phase_person(root):
+    """`person_upper_body_mask` (OpenPose on the photo at 384x512, the SCHP
+    parse of the photo, the mask at 512x512) on a synthetic 600x460 person
+    photo from the written checkpoints: on the card and on the CPU with the
+    same weights, TF32 off, the masks' pixel agreement; then with the
+    served setting (cuDNN's default TF32) one warm call and 3 timed calls:
+    the stages' wall times and the device time of the OpenPose and parse
+    forwards."""
+    import numpy as np
+    import torch
+
+    from imagdressing_tpu_torch.apps import image_utils as iu
+    from imagdressing_tpu_torch.preprocess import mask as pmask
+    from imagdressing_tpu_torch.preprocess.openpose import OpenPose
+    from imagdressing_tpu_torch.preprocess.parsing.infer import Parsing
+    from imagdressing_tpu_torch.tools.profile_parse import person_photo
+
+    path = os.path.join(root, "person.png")
+    iu.write_image(path, person_photo(600, 460, 5))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        want = pmask.person_upper_body_mask(path, 512, 512, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        got = pmask.person_upper_body_mask(path, 512, 512, device="cuda")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    agree = float((got == want).mean())
+    pose = OpenPose.get_default("cuda")
+    keypoints = pose(iu.resize(iu.read_image(path), (384, 512), "bicubic"))
+    found = int((np.asarray(keypoints["pose_keypoints_2d"]) != 0).any(
+        -1).sum())
+    stages, device = [], []
+    for i in range(4):
+        st = {}
+        mask = pmask.person_upper_body_mask(path, 512, 512, device="cuda",
+                                            stage_seconds=st)
+        if i:
+            stages.append(st)
+            device.append(dict(
+                openpose=pose.last_device_ms["body"],
+                **Parsing.get_default("cuda").last_device_ms))
+
+    def median(v):
+        return sorted(v)[len(v) // 2]
+
+    share = float(mask.mean())
+    ok = agree >= MASK_AGREE and mask.shape == (1, 512, 512, 1) \
+        and 0 < share < 1
+    emit("person", photo="600x460", size="512x512", agree=agree,
+         agree_min=MASK_AGREE, parse_agree_min=PARSE_AGREE,
+         mask_share=share, mask_share_cpu=float(want.mean()),
+         keypoints_found=found,
+         why=("random weights: OpenPose assembles no person, so the arm "
+              "bands fall back to the parsed arm labels"
+              if found == 0 else "keypoints found"),
+         cpu_call_s=cpu_s,
+         stage_s={k: median([s[k] for s in stages]) for k in stages[0]},
+         stage_s_all=stages,
+         device_ms={k: median([d[k] for d in device]) for k in device[0]},
+         ok=ok)
+    if not ok:
+        raise SmokeFailure(f"person mask: agree {agree}, share {share}, "
+                           f"shape {mask.shape}")
+
+
+def write_controlnet(root):
+    """A full-width random ControlNet (output convs filled), bf16, as the
+    reference's diffusers file under `root`; -> its directory."""
+    import torch
+
+    from imagdressing_tpu_torch.convert import export_torch as ex
+    from imagdressing_tpu_torch.convert import tree_from_module
+    from imagdressing_tpu_torch.convert.torch_sd import write_safetensors
+    from imagdressing_tpu_torch.core.config import ControlNetConfig, UNetConfig
+    from imagdressing_tpu_torch.models.controlnet import ControlNet
+    from imagdressing_tpu_torch.ops.nn import init_module
+    from imagdressing_tpu_torch.tools.profile_infer import fill_zero_convs
+
+    with torch.device("meta"):
+        cn = ControlNet(ControlNetConfig(unet=UNetConfig()))
+    cn.to_empty(device="cuda")
+    init_module(cn, torch.Generator(device="cuda").manual_seed(7))
+    fill_zero_convs(cn)
+    cn.to(torch.bfloat16)
+    out = os.path.join(root, "controlnet")
+    os.makedirs(out)
+    write_safetensors(os.path.join(out, "diffusion_pytorch_model.safetensors"),
+                      ex.torch_state_dict(ex.export_controlnet(
+                          tree_from_module(cn))))
+    return out
+
+
+def phase_dress_person(paths, counters):
+    """`apps.dress.main` with `--preset inpaint --model_dir P --cloth_dir
+    G` on the written files (the `basic` stack, a ControlNet, the
+    preprocessing nets), 2 person photos x 2 garments at batch 1, STEPS
+    steps: 4 collages under JAX's `_out_name` names; K1-K4 launches of the
+    run equal to 4 x `expected_launches` of one inpaint image, K7's to 2 x
+    238 (one parse per person: the person cache); each image's wall."""
+    from imagdressing_tpu_torch.apps import dress
+    from imagdressing_tpu_torch.apps import image_utils as iu
+    from imagdressing_tpu_torch.core.config import PRESETS
+    from imagdressing_tpu_torch.pipelines import dressing
+    from imagdressing_tpu_torch.tools.profile_parse import person_photo
+
+    root = os.path.dirname(paths["base_dir"])
+    cloth_dir, person_dir, out_dir = (os.path.join(root, d) for d in (
+        "person_cloths", "persons", "person_out"))
+    os.makedirs(cloth_dir)
+    os.makedirs(person_dir)
+    for i in range(2):
+        iu.write_image(os.path.join(cloth_dir, f"top_{i}.png"),
+                       _garment(30 + i))
+        iu.write_image(os.path.join(person_dir, f"model_{i}.png"),
+                       person_photo(600, 460, 10 + i))
+    calls = []
+    call = dressing.DressingPipeline.__call__
+
+    def timed(self, **kw):
+        t0 = time.perf_counter()
+        out = call(self, **kw)
+        calls.append(time.perf_counter() - t0)
+        return out
+
+    for c in counters.values():
+        c.reset()
+    dressing.DressingPipeline.__call__ = timed
+    t0 = time.perf_counter()
+    try:
+        dress.main(["--base_dir", paths["base_dir"],
+                    "--vae_path", paths["vae_path"],
+                    "--image_encoder_path", paths["image_encoder_path"],
+                    "--model_ckpt", paths["model_ckpt"],
+                    "--controlnet_path", paths["controlnet_path"],
+                    "--preset", "inpaint", "--cloth_dir", cloth_dir,
+                    "--model_dir", person_dir,
+                    "--num_inference_steps", str(STEPS),
+                    "--output_path", out_dir, "--device", "cuda"])
+    finally:
+        dressing.DressingPipeline.__call__ = call
+    wall_s = time.perf_counter() - t0
+    launches = {k: c.count for k, c in counters.items()}
+    preset = PRESETS["inpaint"]
+    used = STEPS - max(STEPS - int(STEPS * preset.strength), 0)
+    one = expected_launches(used, True, 2)
+    want = {k: 4 * v for k, v in one.items()}
+    want["bn_act"] = 2 * 238
+    saved = sorted(os.listdir(out_dir))
+    names = [f"model_{p}_top_{c}.png" for p in range(2) for c in range(2)]
+    shapes = {n: list(iu.read_image(os.path.join(out_dir, n)).shape)
+              for n in saved}
+    ok = saved == names and launches == want and len(calls) == 4 \
+        and all(v == [preset.height, 2 * preset.width, 3]
+                for v in shapes.values())
+    emit("dress_person", preset="inpaint", persons=2, garments=2,
+         steps=STEPS, used_steps=used, wall_s=wall_s, image_s=calls,
+         prep_and_load_s=wall_s - sum(calls), saved=saved,
+         collage_shapes=shapes, launches=launches, expected_launches=want,
+         ok=ok)
+    if not ok:
+        raise SmokeFailure(f"dress_person: saved {saved}, launches "
+                           f"{launches} != {want}, calls {len(calls)}")
+    if iu.read_image(os.path.join(out_dir, names[0]))[
+            :, preset.width:].std() == 0:
+        raise SmokeFailure("dress_person: a constant result")
+
+
+def phase_serve_fusion(paths, facenet):
+    """The server (`apps.serve`: handler, worker) with the post-process
+    `load_post_process("face_fusion:<facenet.pth>", "cuda")` over the
+    loaded `basic` stack, STEPS steps: one request with a `fusion_face`
+    PNG and one without, same garment and seed. The response without a
+    face is bit-equal to a direct pipeline call's image; the one with a
+    face equals `FaceFusion(openpose_landmark_fn(Face))` called directly on
+    that image and face (the template itself where fewer than 3 landmarks
+    are found on both), through the worker's uint8 conversion."""
+    import base64
+    import json
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+
+    from imagdressing_tpu_torch.apps import image_utils as iu
+    from imagdressing_tpu_torch.apps.loader import load_dressing_models
+    from imagdressing_tpu_torch.apps.png import decode_png, encode_png
+    from imagdressing_tpu_torch.apps.serve import (
+        InferenceWorker,
+        garment_inputs,
+        load_post_process,
+        make_handler,
+    )
+    from imagdressing_tpu_torch.apps.tokenizer import load_tokenizer
+    from imagdressing_tpu_torch.core.config import PRESETS
+    from imagdressing_tpu_torch.pipelines.dressing import DressingPipeline
+    from imagdressing_tpu_torch.postprocess.face_fusion import (
+        FaceFusion,
+        openpose_landmark_fn,
+    )
+    from imagdressing_tpu_torch.preprocess.openpose.face import Face
+    from imagdressing_tpu_torch.tools.profile_parse import person_photo
+
+    models = load_dressing_models(
+        **{k: v for k, v in paths.items() if k != "controlnet_path"},
+        device="cuda")
+    preset = dataclasses.replace(PRESETS["basic"], num_inference_steps=STEPS)
+    pipe = DressingPipeline(models, preset)
+    tokenizer = load_tokenizer(os.path.join(paths["base_dir"], "tokenizer"))
+    post = load_post_process(f"face_fusion:{facenet}", "cuda")
+    worker = InferenceWorker(pipe, tokenizer, max_batch=4, post_process=post)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(worker, preset))
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    cloth = encode_png(_garment(40))
+    face = person_photo(256, 256, 41)
+    face_png = base64.b64encode(encode_png(face)).decode()
+    out = {}
+    try:
+        for name, extra in (("plain", {}), ("face", {"fusion_face":
+                                                     face_png})):
+            body = dict(prompt="a woman in a dress", seed=42, steps=STEPS,
+                        cloth_image=base64.b64encode(cloth).decode(),
+                        **extra)
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{httpd.server_address[1]}/dress",
+                data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=900) as resp:
+                r = json.loads(resp.read())
+            out[name] = (decode_png(base64.b64decode(r["image"])),
+                         time.perf_counter() - t0)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(30)
+    ref, clip = garment_inputs(iu.read_image(cloth), preset,
+                               models.vision_cfg.image_size)
+    direct = pipe(prompt_ids=tokenizer("a woman in a dress")[None],
+                  negative_prompt_ids=tokenizer(iu.DEFAULT_NEGATIVE)[None],
+                  ref_image=ref, ref_clip_image=clip, seed=42,
+                  num_inference_steps=STEPS, output_uint8=True)[0]
+    landmark_fn = openpose_landmark_fn(Face.from_torch(facenet, "cuda"))
+    template = direct.astype(np.float32) / 255.0
+    fused = FaceFusion(landmark_fn)(template, face)
+    want = np.clip(np.asarray(fused, np.float32) * 255.0, 0,
+                   255).round().astype(np.uint8)
+    counts = {}
+    for name, img in (("result", direct), ("face", face)):
+        lm = landmark_fn(img)
+        counts[name] = 0 if lm is None else int((lm != 0).any(-1).sum())
+    plain_equal = bool(np.array_equal(out["plain"][0], direct))
+    fused_equal = bool(np.array_equal(out["face"][0], want))
+    unchanged = bool(np.array_equal(want, direct))
+    ok = plain_equal and fused_equal
+    emit("serve_fusion", preset="basic", steps=STEPS,
+         round_trip_s={k: v[1] for k, v in out.items()},
+         landmarks_found=counts, fused_is_template=unchanged,
+         plain_bit_equal_direct=plain_equal,
+         face_equal_direct_fusion=fused_equal, ok=ok)
+    if not ok:
+        raise SmokeFailure(f"serve_fusion: plain {plain_equal}, fused "
+                           f"{fused_equal}")
+    worker.pipe = None
+
+
 def main() -> int:
     import torch
 
@@ -1995,6 +2372,12 @@ def main() -> int:
             phase_serve(models, paths, inference)
             del models
             phase_dress(paths)
+            phase_openpose_check()
+            pre = write_preprocess(root)
+            phase_person(root)
+            paths["controlnet_path"] = write_controlnet(root)
+            phase_dress_person(paths, dict(inference, bn_act=fba.COUNTER))
+            phase_serve_fusion(paths, pre["facenet"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1

@@ -4,20 +4,27 @@
   python -m imagdressing_tpu_torch.apps.dress --preset cartoon  --cloth_path X
   python -m imagdressing_tpu_torch.apps.dress --preset pose     --cloth_path X --pose_path P
   python -m imagdressing_tpu_torch.apps.dress --preset ipa_pose --cloth_path X --pose_path P --face_path F
+  python -m imagdressing_tpu_torch.apps.dress --preset inpaint  --cloth_path X --model_path M
 
 Argument names track the reference CLIs (--cloth_path / --model_ckpt /
 --output_path). Folder mode (--cloth_dir) batches garments on the card
 (--batch_size; the ragged last chunk is padded to the batch). --pose_dir /
---face_dir reproduce the reference folder scripts' nested cross-product
-loops (factor x cloth) with their f"{factor}_{cloth}.png" output naming.
-Each output is the collage [garment | result].
+--face_dir / --model_dir reproduce the reference folder scripts' nested
+cross-product loops (factor x cloth) with their f"{factor}_{cloth}.png"
+output naming. Each output is the collage [garment | result].
+
+A person photo (--model_path / --model_dir, the `inpaint` preset) becomes
+the pipeline's person_image, its automatic upper-body mask
+(`preprocess/mask.person_upper_body_mask`: OpenPose and the SCHP parse on
+the same device, from the checkpoints named by IMAGDRESSING_OPENPOSE_CKPT,
+IMAGDRESSING_ATR_CKPT and IMAGDRESSING_LIP_CKPT) and the inpaint
+ControlNet's condition, once per photo.
 
 Runs on the card (`--device cuda`, the default; raises on a host without
 one) or, with `--device cpu`, with every kernel's plain version. Not ported
-yet, and raising with their ROADMAP pointer: --model_path / --model_dir
-(the inpaint preset from a person photo needs the parse-based mask and
-OpenPose), --trained_ckpt (the JAX trainer's orbax checkpoints),
---data_parallel / --tensor_parallel other than 1 (multi-GPU).
+yet, and raising with their ROADMAP pointer: --trained_ckpt (the JAX
+trainer's orbax checkpoints), --data_parallel / --tensor_parallel other
+than 1 (multi-GPU).
 """
 
 from __future__ import annotations
@@ -27,12 +34,6 @@ import dataclasses
 import os
 
 import numpy as np
-
-MODEL_PATH_PENDING = (
-    "--model_path / --model_dir (inpaint from a person photo) need the "
-    "parse-based inpaint mask (preprocess/mask.py) and OpenPose, which the "
-    "PyTorch port does not have yet (ROADMAP Queue 1, preprocessing); the "
-    "pipeline takes person_image / mask_image arrays meanwhile")
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -60,10 +61,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--face_dir", type=str, default=None,
                    help="cross-product over face photos")
     p.add_argument("--model_path", type=str, default=None,
-                   help="person photo for outfit-swap inpainting (not "
-                        "ported yet)")
+                   help="person photo for outfit-swap inpainting")
     p.add_argument("--model_dir", type=str, default=None,
-                   help="cross-product over person photos (not ported yet)")
+                   help="cross-product over person photos")
     p.add_argument("--prompt", type=str, default=None)
     p.add_argument("--negative_prompt", type=str, default=None)
     p.add_argument("--output_path", type=str, default="./output_sd_base")
@@ -113,8 +113,6 @@ def main(argv=None):
     from imagdressing_tpu_torch.core.config import PRESETS
     from imagdressing_tpu_torch.pipelines.dressing import DressingPipeline
 
-    if args.model_path or args.model_dir:
-        raise SystemExit(MODEL_PATH_PENDING)
     if args.trained_ckpt:
         raise SystemExit(TRAINED_CKPT_PENDING)
     if args.data_parallel != 1 or args.tensor_parallel != 1:
@@ -165,13 +163,15 @@ def main(argv=None):
     # degenerate one-element factor
     poses = list_images(args.pose_dir) if args.pose_dir else [args.pose_path]
     faces = list_images(args.face_dir) if args.face_dir else [args.face_path]
+    persons = list_images(args.model_dir) if args.model_dir \
+        else [args.model_path]
     os.makedirs(args.output_path, exist_ok=True)
 
     # per-path preprocessing caches: a factor image is prepared once no
     # matter how many grid rows reuse it
-    pose_cache, face_cache = {}, {}
+    pose_cache, face_cache, person_cache = {}, {}, {}
 
-    def extras_for(pose_path, face_path):
+    def extras_for(pose_path, face_path, person_path):
         ex = {}
         if pose_path:
             if pose_path not in pose_cache:
@@ -188,13 +188,34 @@ def main(argv=None):
 
                 face_cache[face_path] = face_embeds_from_image(face_path)
             ex["faceid_embeds"], ex["face_clip_image"] = face_cache[face_path]
+        if person_path:
+            if person_path not in person_cache:
+                from imagdressing_tpu_torch.preprocess.mask import (
+                    make_inpaint_condition,
+                    person_upper_body_mask,
+                )
+
+                person = iu.prepare_person(person_path, preset.height,
+                                           preset.width)
+                mask = person_upper_body_mask(person_path, preset.height,
+                                              preset.width,
+                                              device=args.device)
+                # the inpaint ControlNet's condition: the person in [0, 1]
+                # with the masked pixels at -1
+                cond = make_inpaint_condition((person[0] + 1.0) / 2.0,
+                                              mask[0, ..., 0])
+                person_cache[person_path] = {"person_image": person,
+                                             "mask_image": mask,
+                                             "pose_image": cond}
+            ex.update(person_cache[person_path])
         return ex
 
     def out_name(item):
-        cloth_path, pose_path, face_path = item
+        cloth_path, pose_path, face_path, person_path = item
         stems = [os.path.splitext(os.path.basename(p))[0]
                  for p, is_dir in ((pose_path, args.pose_dir),
-                                   (face_path, args.face_dir))
+                                   (face_path, args.face_dir),
+                                   (person_path, args.model_dir))
                  if is_dir and p]
         cloth_name = os.path.basename(cloth_path)
         if not stems:
@@ -204,7 +225,8 @@ def main(argv=None):
 
     # factor-major order like the reference's nested loops; the device batch
     # dim then chews through the flat grid instead of looping serially
-    items = [(c, pp, fp) for pp in poses for fp in faces for c in cloths]
+    items = [(c, pp, fp, mp) for pp in poses for fp in faces
+             for mp in persons for c in cloths]
 
     bs = max(1, args.batch_size)
     for start in range(0, len(items), bs):
@@ -217,7 +239,7 @@ def main(argv=None):
         prepped = [iu.prepare_garment(item[0], preset.height, preset.width,
                                       clip_size=models.vision_cfg.image_size)
                    for item in chunk]
-        extras = [extras_for(pp, fp) for (_c, pp, fp) in chunk]
+        extras = [extras_for(*item[1:]) for item in chunk]
         b = len(chunk)
         # every row carries the same factor kinds (the lists are homogeneous)
         batched_extra = {k: np.concatenate([e[k] for e in extras])

@@ -11,7 +11,9 @@
 API:
   POST /dress  {"prompt": str, "negative_prompt": str, "steps": int,
                 "guidance_scale": float, "image_scale": float, "seed": int,
-                "cloth_image": base64 image (PNG; JPEG where PIL is installed)}
+                "cloth_image": base64 image (PNG; JPEG where PIL is installed),
+                "fusion_face": optional base64 face photo, fused into the
+                result under `--post_process face_fusion:<facenet.pth>`}
   -> {"image": base64-png, "latency_s": float}
 
 Run: python -m imagdressing_tpu_torch.apps.serve --base_dir ... (see
@@ -38,10 +40,6 @@ from imagdressing_tpu_torch.train.data import clip_preprocess_np
 MULTI_GPU_PENDING = (
     "--data_parallel / --tensor_parallel other than 1 wait for the port's "
     "multi-GPU slice (ROADMAP Queue 1, multi-GPU); run with one card")
-FACE_FUSION_PENDING = (
-    "the built-in face_fusion post-process waits for the port of "
-    "postprocess/face_fusion.py and the OpenPose face net (ROADMAP Queue 1, "
-    "the rest); pass a 'module:function' post-process instead")
 
 _FORM = """<!doctype html><title>IMAGDressing</title>
 <h2>IMAGDressing</h2>
@@ -261,19 +259,33 @@ def _parse_multipart(raw: bytes, content_type: str):
     return payload, cloth
 
 
-def load_post_process(spec: str):
+def load_post_process(spec: str, device="cuda"):
     """Resolve a post-process spec to a `(img01, payload) -> img01` callable.
 
     Accepted forms:
       * ``module:function``: any importable callable;
-      * ``face_fusion:<facenet.pth>``: the JAX package's built-in face
-        fusion, which the port does not have yet (raises).
+      * ``face_fusion:<facenet.pth>``: the built-in face fusion
+        (`postprocess/face_fusion.py`) with the OpenPose FaceNet at that
+        path, on `device`; a request carrying a ``fusion_face`` image
+        (base64 in the JSON API) gets the user's face fused into the
+        result, the reference's image_face_fusion step.
     """
     import importlib
 
     head, _, rest = spec.partition(":")
     if head == "face_fusion":
-        raise NotImplementedError(FACE_FUSION_PENDING)
+        if not rest:
+            raise ValueError(
+                "--post_process face_fusion needs the FaceNet weight path: "
+                "face_fusion:<body_pose-style facenet .pth>")
+        from imagdressing_tpu_torch.postprocess.face_fusion import (
+            make_post_process,
+            openpose_landmark_fn,
+        )
+        from imagdressing_tpu_torch.preprocess.openpose.face import Face
+
+        return make_post_process(openpose_landmark_fn(
+            Face.from_torch(rest, device)))
     if not rest:
         raise ValueError(
             f"--post_process expects 'module:function', got {spec!r}")
@@ -336,8 +348,9 @@ def build_argparser():
                    help="'http' = dependency-free built-in form; 'gradio' "
                         "needs the optional gradio package")
     p.add_argument("--post_process", default=None,
-                   help="'module:function' applied to each decoded image "
-                        "(the face-fusion hook)")
+                   help="'module:function' applied to each decoded image, "
+                        "or 'face_fusion:<facenet.pth>' (the built-in face "
+                        "fusion of a request's fusion_face)")
     p.add_argument("--preset", default="basic")
     p.add_argument("--model_ckpt", default="ckpt/IMAGDressing-v1_512.pt")
     p.add_argument("--base_dir", default="ckpt/Realistic_Vision_V4.0_noVAE")
@@ -367,7 +380,8 @@ def main(argv=None):
     from imagdressing_tpu_torch.pipelines.dressing import DressingPipeline
 
     preset = PRESETS[args.preset]
-    post = load_post_process(args.post_process) if args.post_process else None
+    post = load_post_process(args.post_process, args.device) \
+        if args.post_process else None
     models = load_dressing_models(
         base_dir=args.base_dir, vae_path=args.vae_path,
         image_encoder_path=args.image_encoder_path,

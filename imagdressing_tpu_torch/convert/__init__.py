@@ -130,6 +130,14 @@ def parsing_params_from_jax(atr_tree: Any, lip_tree: Any
     return state_dict_from_jax(atr_tree), state_dict_from_jax(lip_tree)
 
 
+def openpose_params_from_jax(tree: Any) -> StateDict:
+    """A JAX OpenPose tree (`preprocess.openpose.{model,hand,face}.init` or
+    `convert_torch`: {layer name: {kernel HWIO, bias}}) -> the state dict
+    of the port's `BodyPoseNet`, `HandPoseNet` or `FaceNet` (OIHW, the same
+    layer names)."""
+    return state_dict_from_jax(tree)
+
+
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, StateDict]:
     """JAX `DressingModels.params` -> {model name: state dict}, with the
     model names of the JAX tree (unet, ref_unet, ref_adapters, resampler,

@@ -19,6 +19,15 @@ synthetic ones written here from a seeded stack):
                                                        adapters (+ a random
                                                        LoRA with lora_rank > 0)
 
+and with `--preprocess` (`write_preprocess_checkpoints`) the nets of the
+person-photo path and the face fusion, at full width, random:
+
+  ROOT/preprocess/body_pose_model.pth    OpenPose body, bare layer keys
+  ROOT/preprocess/hand_pose_model.pth    OpenPose hand
+  ROOT/preprocess/facenet.pth            OpenPose face
+  ROOT/preprocess/exp-schp-atr.pth       SCHP ATR and LIP, {"state_dict":
+  ROOT/preprocess/exp-schp-lip.pth       {"module." + reference name}}
+
 Every tensor keeps the stack's dtype, so a bf16 stack writes bf16 files.
 Each model goes through `convert.tree_from_module` and the inverse
 converters of `convert/export_torch.py`, so loading the files back gives
@@ -27,10 +36,13 @@ load time where lora_scale > 0).
 
   python -m imagdressing_tpu_torch.tools.write_checkpoints --out DIR \\
       [--small] [--dtype bf16] [--controlnet] [--ipa [--lora_rank 4]] \\
-      [--device cpu]
+      [--preprocess] [--device cpu]
 
 The stack is drawn on the card unless `--device cpu` is given; without a
-card the default raises, as the other entry points do.
+card the default raises, as the other entry points do. It prints the
+loader's path flags and, with `--preprocess`, the environment variables
+that `dress --model_path / --model_dir` reads and the server's
+`--post_process face_fusion:` flag.
 """
 
 from __future__ import annotations
@@ -46,6 +58,10 @@ from imagdressing_tpu_torch.convert import tree_from_module
 from imagdressing_tpu_torch.convert.torch_sd import write_safetensors
 from imagdressing_tpu_torch.models.unet import adapter_key, attn_layer_names
 from imagdressing_tpu_torch.pipelines.dressing import DressingModels
+from imagdressing_tpu_torch.preprocess.openpose.face import FaceNet
+from imagdressing_tpu_torch.preprocess.openpose.hand import HandPoseNet
+from imagdressing_tpu_torch.preprocess.openpose.model import BodyPoseNet
+from imagdressing_tpu_torch.preprocess.parsing import model as schp
 
 
 def _by_layer(module, names):
@@ -128,6 +144,44 @@ def write_checkpoints(models: DressingModels, root: str, *,
     return paths
 
 
+def write_preprocess_checkpoints(root: str, seed: int = 0,
+                                 device="cpu") -> Dict[str, str]:
+    """Random full-width OpenPose body / hand / face nets and the SCHP ATR
+    / LIP pair, drawn on `device` from `seed` (body seed, hand seed + 1,
+    face seed + 2, ATR seed + 3, LIP seed + 4), written under
+    `root/preprocess` in the reference's key layouts. Returns {the
+    environment variables IMAGDRESSING_OPENPOSE_CKPT, IMAGDRESSING_ATR_CKPT,
+    IMAGDRESSING_LIP_CKPT: paths, "facenet": path, "hand": path}."""
+    out = os.path.join(root, "preprocess")
+    os.makedirs(out, exist_ok=True)
+
+    def save(name, sd):
+        path = os.path.join(out, name)
+        torch.save({k: v.detach().cpu().contiguous() for k, v in sd.items()},
+                   path)
+        return path
+
+    paths = {}
+    for key, name, cls, k in (
+            ("IMAGDRESSING_OPENPOSE_CKPT", "body_pose_model.pth",
+             BodyPoseNet, 0),
+            ("hand", "hand_pose_model.pth", HandPoseNet, 1),
+            ("facenet", "facenet.pth", FaceNet, 2)):
+        paths[key] = save(name, cls.init_random(seed + k, device).state_dict())
+    for key, name, n, k in (
+            ("IMAGDRESSING_ATR_CKPT", "exp-schp-atr.pth",
+             schp.NUM_CLASSES_ATR, 3),
+            ("IMAGDRESSING_LIP_CKPT", "exp-schp-lip.pth",
+             schp.NUM_CLASSES_LIP, 4)):
+        sd = schp.init(seed + k, n, device).state_dict()
+        path = os.path.join(out, name)
+        torch.save({"state_dict": {
+            "module." + schp.reference_name(key_): v.detach().cpu().contiguous()
+            for key_, v in sd.items()}}, path)
+        paths[key] = path
+    return paths
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", required=True)
@@ -138,6 +192,9 @@ def main(argv=None):
     p.add_argument("--controlnet", action="store_true")
     p.add_argument("--ipa", action="store_true")
     p.add_argument("--lora_rank", type=int, default=0)
+    p.add_argument("--preprocess", action="store_true",
+                   help="also the OpenPose body / hand / face nets and the "
+                        "SCHP pair (full width, random)")
     p.add_argument("--device", default="cuda",
                    help="where the random stack is drawn; cpu only when "
                    "asked for")
@@ -151,6 +208,12 @@ def main(argv=None):
         if args.ipa and args.lora_rank else None
     for k, v in write_checkpoints(models, args.out, lora=lora).items():
         print(f"--{k} {v}")
+    if args.preprocess:
+        pre = write_preprocess_checkpoints(args.out, args.seed, args.device)
+        for k, v in pre.items():
+            if k.startswith("IMAGDRESSING_"):
+                print(f"{k}={v}")
+        print(f"--post_process face_fusion:{pre['facenet']}")
 
 
 if __name__ == "__main__":

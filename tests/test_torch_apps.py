@@ -1,6 +1,8 @@
 """The port's apps against the JAX package: the tokenizer, the PNG codec,
 image preparation, the whole file-to-image slice, the HTTP server and the
-`dress` CLI, on the CPU.
+`dress` CLI (with person photos: OpenPose and the parser stubbed), the
+`face_fusion:` post-process and `write_checkpoints --preprocess`, on the
+CPU.
 
 A tiny port stack (`DressingModels.init_random(0, small=True,
 with_controlnet=True)`, fp32; the `basic` models draw first, so they do not
@@ -597,8 +599,8 @@ def test_post_process_specs_and_gradio():
     assert fn("a", "b").endswith("b")
     with pytest.raises(ValueError, match="module:function"):
         serve.load_post_process("os.path.join")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.load_post_process("face_fusion:facenet.pth")
+    with pytest.raises(ValueError, match="FaceNet weight path"):
+        serve.load_post_process("face_fusion:")
     try:
         import gradio  # noqa: F401
     except ImportError:
@@ -727,7 +729,7 @@ def test_dress_cli_pose_cross_product(cli, tmp_path):
 
 def test_dress_cli_refusals(cli, tmp_path):
     """Without --device cpu on a host without a card, the CLI raises; the
-    options the port has not got yet raise with their ROADMAP pointer."""
+    option the port has not got yet raises with its ROADMAP pointer."""
     run, _, _ = cli
     cloth = tmp_path / "shirt.png"
     cloth.write_bytes(pil_png(garment(0, 64, 64)))
@@ -735,12 +737,152 @@ def test_dress_cli_refusals(cli, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             run(base)
-    for extra in (["--model_path", str(cloth)], ["--model_dir", "x"],
-                  ["--trained_ckpt", "ckpt"]):
-        with pytest.raises(SystemExit, match="ROADMAP"):
-            run(base + extra + ["--device", "cpu"])
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        run(base + ["--trained_ckpt", "ckpt", "--device", "cpu"])
     with pytest.raises(SystemExit, match="multi-GPU"):
         run(base + ["--data_parallel", "2", "--device", "cpu"])
+
+
+def test_dress_cli_inpaint_model_dir(cli, tmp_path, monkeypatch):
+    """--preset inpaint --model_dir x --cloth_dir with OpenPose and the
+    parser stubbed (their defaults are the full-width nets): person-major
+    f"{person}_{cloth}.png" names, each person prepared once, and the
+    arrays each pipeline call gets are the person photo in [-1, 1], its
+    upper-body mask and the inpaint condition built from both."""
+    from imagdressing_tpu_torch.preprocess import mask as pmask
+    from imagdressing_tpu_torch.preprocess.openpose import OpenPose
+    from imagdressing_tpu_torch.preprocess.parsing.infer import Parsing
+
+    run, batches, paths = cli
+    cloth_dir, person_dir = tmp_path / "garments", tmp_path / "people"
+    cloth_dir.mkdir()
+    person_dir.mkdir()
+    for i, name in enumerate(("a.png", "b.png")):
+        (cloth_dir / name).write_bytes(pil_png(garment(i, 100, 80)))
+        (person_dir / f"m{i + 1}.png").write_bytes(
+            pil_png(garment(7 + i, 120, 90)))
+    kps = np.zeros((18, 2))
+    kps[[2, 3, 4, 5, 6, 7]] = [[250, 130], [270, 210], [280, 290],
+                               [130, 130], [110, 210], [100, 290]]
+    calls = []
+
+    def pose(img):
+        calls.append(("pose", img.shape))
+        return {"pose_keypoints_2d": kps.tolist()}
+
+    def parser(img):
+        calls.append(("parse", img.shape))
+        parse = np.zeros(img.shape[:2], np.uint8)
+        h, w = parse.shape
+        parse[h // 4:3 * h // 4, w // 4:3 * w // 4] = 4
+        parse[:h // 6, w // 3:2 * w // 3] = 11
+        return parse, (parse == 11).astype(np.float32)
+
+    monkeypatch.setattr(OpenPose, "get_default",
+                        classmethod(lambda cls, device="cuda": pose))
+    monkeypatch.setattr(Parsing, "get_default",
+                        classmethod(lambda cls, device="cuda": parser))
+    seen = []
+    call = DressingPipeline.__call__
+
+    def recording(self, **kw):
+        seen.append({k: kw[k] for k in ("person_image", "mask_image",
+                                        "pose_image")})
+        return call(self, **kw)
+
+    monkeypatch.setattr(DressingPipeline, "__call__", recording)
+    out = tmp_path / "out"
+    run(["--preset", "inpaint", "--controlnet_path", paths["controlnet_path"],
+         "--cloth_dir", str(cloth_dir), "--model_dir", str(person_dir),
+         "--batch_size", "2", "--output_path", str(out), "--device", "cpu"])
+    assert sorted(os.listdir(out)) == ["m1_a.png", "m1_b.png", "m2_a.png",
+                                       "m2_b.png"]
+    assert calls == [("pose", (512, 384, 3)), ("parse", (120, 90, 3))] * 2
+    assert [kw["person_image"].shape[0] for kw in seen] == [2, 2]
+    for k, person in enumerate(("m1", "m2")):
+        path = str(person_dir / f"{person}.png")
+        want_person = iu.prepare_person(path, SIZE, SIZE)
+        want_mask = pmask.person_upper_body_mask(path, SIZE, SIZE,
+                                                 device="cpu")
+        want_cond = pmask.make_inpaint_condition(
+            (want_person[0] + 1) / 2, want_mask[0, ..., 0])
+        assert 0 < want_mask.sum() < SIZE * SIZE
+        for row in range(2):  # both garments of this person, one call
+            np.testing.assert_array_equal(
+                seen[k]["person_image"][row:row + 1], want_person)
+            np.testing.assert_array_equal(
+                seen[k]["mask_image"][row:row + 1], want_mask)
+            np.testing.assert_array_equal(
+                seen[k]["pose_image"][row:row + 1], want_cond)
+    assert iu.read_image(str(out / "m2_b.png")).shape == (SIZE, 2 * SIZE, 3)
+
+
+def test_face_fusion_post_process_from_a_written_facenet(tmp_path):
+    """`load_post_process("face_fusion:<facenet.pth>")` on a FaceNet file
+    written in the reference's key layout: on the CPU when asked (on a host
+    without a card, raising otherwise); a request without `fusion_face`
+    passes through, one with a face gets the template back where the
+    random net finds fewer than 3 landmarks, as FaceFusion's rule has it."""
+    from imagdressing_tpu_torch.preprocess.openpose.face import FaceNet
+
+    path = str(tmp_path / "facenet.pth")
+    torch.save({f"model.{k}": v.contiguous() for k, v in
+                FaceNet.init_random(0).state_dict().items()}, path)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve.load_post_process(f"face_fusion:{path}")
+    post = serve.load_post_process(f"face_fusion:{path}", "cpu")
+    img = garment(3, 64, 48).astype(np.float32) / 255.0
+    np.testing.assert_array_equal(post(img, {}), img)
+    face = base64.b64encode(encode_png(garment(4, 40, 32))).decode()
+    out = post(img, {"fusion_face": face})
+    assert out.shape == img.shape and np.isfinite(out).all()
+
+
+def test_write_checkpoints_preprocess_round_trip(tmp_path, capsys):
+    """`write_checkpoints --preprocess`: the OpenPose body / hand / face
+    nets and the SCHP pair written in the reference's layouts load back
+    through the port's loaders bit for bit; it prints the environment
+    variables the person path reads and the face-fusion flag."""
+    from imagdressing_tpu_torch.preprocess.openpose import OpenPose
+    from imagdressing_tpu_torch.preprocess.openpose.face import Face, FaceNet
+    from imagdressing_tpu_torch.preprocess.openpose.hand import (
+        Hand,
+        HandPoseNet,
+    )
+    from imagdressing_tpu_torch.preprocess.openpose.model import BodyPoseNet
+    from imagdressing_tpu_torch.preprocess.parsing import model as schp
+    from imagdressing_tpu_torch.preprocess.parsing.infer import Parsing
+
+    wc_mod.main(["--out", str(tmp_path), "--small", "--device", "cpu",
+                 "--preprocess", "--seed", "3"])
+    lines = capsys.readouterr().out.splitlines()
+    env = dict(line.split("=", 1) for line in lines
+               if line.startswith("IMAGDRESSING_"))
+    assert sorted(env) == ["IMAGDRESSING_ATR_CKPT", "IMAGDRESSING_LIP_CKPT",
+                           "IMAGDRESSING_OPENPOSE_CKPT"]
+    facenet = [ln.split("face_fusion:", 1)[1] for ln in lines
+               if ln.startswith("--post_process face_fusion:")]
+    assert len(facenet) == 1
+    hand_path = os.path.join(os.path.dirname(facenet[0]),
+                             "hand_pose_model.pth")
+
+    def same(module, want):
+        have = module.state_dict()
+        assert have.keys() == want.keys()
+        for k, v in want.items():
+            assert torch.equal(have[k], v), k
+
+    same(OpenPose.from_torch(env["IMAGDRESSING_OPENPOSE_CKPT"], "cpu").net,
+         BodyPoseNet.init_random(3).state_dict())
+    same(Hand.from_torch(hand_path, "cpu").net,
+         HandPoseNet.init_random(4).state_dict())
+    same(Face.from_torch(facenet[0], "cpu").net,
+         FaceNet.init_random(5).state_dict())
+    parsing = Parsing.from_torch(env["IMAGDRESSING_ATR_CKPT"],
+                                 env["IMAGDRESSING_LIP_CKPT"], "cpu")
+    same(parsing.atr, schp.init(6, schp.NUM_CLASSES_ATR).state_dict())
+    same(parsing.lip, schp.init(7, schp.NUM_CLASSES_LIP).state_dict())
 
 
 # ---------------------------------------------------------------------------

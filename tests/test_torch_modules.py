@@ -280,7 +280,8 @@ def test_port_imports_no_jax():
         PORT_DIR.parent / "chip_smoke.py",
         PORT_DIR.parent / "tests" / "test_torch_gpu.py"]
     assert len(files) > 10
-    # the preset slice's modules and the apps slice's are among them
+    # the preset slice's modules, the apps slice's and the preprocessing
+    # slice's are among them
     names = {str(f.relative_to(PORT_DIR.parent)) for f in files}
     port = "imagdressing_tpu_torch/"
     assert {port + m for m in (
@@ -288,7 +289,12 @@ def test_port_imports_no_jax():
         "convert/torch_sd.py", "convert/export_torch.py", "apps/loader.py",
         "apps/tokenizer.py", "apps/image_utils.py", "apps/png.py",
         "apps/serve.py", "apps/dress.py", "preprocess/face.py",
-        "train/data.py", "tools/write_checkpoints.py")} <= names
+        "train/data.py", "tools/write_checkpoints.py", "ops/resize.py",
+        "preprocess/imgproc.py", "preprocess/mask.py",
+        "preprocess/openpose/__init__.py", "preprocess/openpose/model.py",
+        "preprocess/openpose/hand.py", "preprocess/openpose/face.py",
+        "preprocess/openpose/infer.py", "preprocess/openpose/draw.py",
+        "postprocess/__init__.py", "postprocess/face_fusion.py")} <= names
     for path in files:
         tree = ast.parse(path.read_text(), str(path))
         in_functions = {id(n) for f in ast.walk(tree)
