@@ -47,7 +47,13 @@ Phases, each printing one line:
   8. train: the training step (`train.step`) at full SD1.5 width, 512x640,
      batch 1, bf16 frozen models and fp32 master weights, block remat: one
      warm step, then TRAIN_STEPS timed steps with s/step, peak memory, the
-     loss and gradient norm of each step and each kernel's launches;
+     loss and gradient norm of each step and each kernel's launches (as
+     derived in `expected_train_launches`);
+  8b. remat: the same step from the same weights, batch and draws under
+     each remat policy (full, dots, names, heavy, none): the loss equal
+     across policies, the gradient norm within 1e-3 of full's, peak memory,
+     s/step and the launches per step as derived (names / heavy launch no
+     K5 and no GN+conv forward in the recompute);
   9. parse_check: the SCHP human parser (ATR 512 + LIP 473, ResNet-101 at
      full width, random weights) on a 200x150 photo on the card and on the
      CPU with the same weights: the logits of both nets and the parse maps
@@ -68,6 +74,13 @@ Phases, each printing one line:
      the batch-4 latency, images per minute, stage times, peak memory;
  13. dress: `apps.dress.main` on a folder of 5 PNG garments at batch 4 (one
      chunk padded), loading from the same files: 5 collages, wall per chunk;
+ 13b. train_cli: `apps.train_cli.main` from the same base files on a
+     written manifest of 4 JPEG person / garment pairs (4 steps,
+     checkpoints every 2, TensorBoard), a resumed run to step 6, and
+     `apps.dress.main --trained_ckpt` beside the base stack's image: the
+     metrics, checkpoints, the bit-equal step-4 state, the merge and the
+     launches per step and per image; the decoder used, s/step, data time,
+     peak memory;
  14. openpose_check: the OpenPose body, hand and face nets at full width,
      random weights, on the card and on the CPU (TF32 off): their maps and
      keypoints;
@@ -472,8 +485,10 @@ def _grad_case(fn, plain, leaves, g):
 
 
 def gn_conv_grad_case(dtype, seed):
-    """K2's Function (kernel forward, recomputed reference backward) at the
-    top UNet level of a batch-1 training step."""
+    """K2's Function (kernel forward, its chain recomputed and
+    differentiated in the backward) at the top UNet level of a batch-1
+    training step; in bf16 both it and autograd of the plain version are
+    held against the fp32 gradients (`truth`)."""
     import torch
 
     from imagdressing_tpu_torch.kernels import fused_gn_conv as fgc
@@ -491,12 +506,25 @@ def gn_conv_grad_case(dtype, seed):
               0.1 * rnd((cin,)), wt, rnd((co,)), rnd((b, cin))]
     leaves = [x.requires_grad_() for x in leaves]
     kw = dict(num_groups=32, eps=1e-5)
-    return _grad_case(
+
+    def plain(x, gw, gb, w_, cb, t):
+        return fgc.gn_silu_conv3x3_plain(x, gw, gb, w_, cb, add=t, **kw)
+
+    g = rnd((b, h, w, co))
+    case = _grad_case(
         lambda x, gw, gb, w_, cb, t: fgc.gn_silu_conv3x3(x, gw, gb, w_, cb,
                                                          add=t, **kw),
-        lambda x, gw, gb, w_, cb, t: fgc.gn_silu_conv3x3_plain(
-            x, gw, gb, w_, cb, add=t, **kw),
-        leaves, rnd((b, h, w, co)))
+        plain, leaves, g)
+    if dtype == torch.bfloat16:
+        # both bf16 chains are held against the fp32 gradients of the same
+        # inputs: two bf16 chains differ from each other by the rounding of
+        # both, so neither is the other's reference
+        def truth():
+            up = [t.detach().float().requires_grad_() for t in leaves]
+            return torch.autograd.grad(plain(*up), up, g.float())
+
+        case["truth"] = truth
+    return case
 
 
 def group_norm_grad_case(dtype, seed):
@@ -720,6 +748,31 @@ TIMED = {"flash_fwd": "2x5120x8x40dual",
 TIMED_DTYPE = {"bn_act": "fp32"}
 
 
+# cases also run at seeds beside their index: seed 75 is where the bf16
+# GN+conv gradient's d(temb) once exceeded its bound against the plain chain
+EXTRA_SEEDS = {"gn_silu_conv3x3.grad": (75,)}
+
+
+def _check_against_truth(name, label, outs, sides, truth):
+    """A bf16 case with an fp32 `truth`: each side within TOL["bf16"] of
+    it, bounded by the same rule (atol + rtol * max |truth|)."""
+    atol, rtol = TOL["bf16"]
+    for i, out in enumerate(outs):
+        t = truth[i].float()
+        ref = t.abs().max().item()
+        tol = atol + rtol * ref
+        for side, vals in sides:
+            err = (vals[i].float() - t).abs().max().item()
+            ok = math.isfinite(err) and err <= tol
+            emit("check", kernel=name, shape=label, dtype="bf16", output=out,
+                 side=side, against="fp32", max_abs_err=err,
+                 max_abs_ref=ref, tol=tol, ok=ok)
+            if not ok:
+                raise SmokeFailure(f"{name} {label} bf16 {out} ({side}) vs "
+                                   f"fp32: max abs err {err:.4g} > "
+                                   f"{tol:.4g}")
+
+
 def phase_check():
     """Returns each kernel's max abs error at its TIMED shape and dtype."""
     import torch
@@ -728,14 +781,24 @@ def phase_check():
     errs = {}
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False  # fp32 plain convs in full fp32
+    runs = [(seed, case) for seed, case in enumerate(check_cases())]
+    runs += [(seed, case) for case in check_cases()
+             for seed in EXTRA_SEEDS.get(case[0], ())]
     try:
-        for seed, (name, label, build) in enumerate(check_cases()):
+        for seed, (name, label, build) in runs:
             for dn, dt in dtypes.items():
                 case = build(dt, seed)
                 got = case["kernel"]()
                 want = case["plain"]()
+                truth = case["truth"]() if "truth" in case else None
                 torch.cuda.synchronize()
                 outs = case.get("outputs", ("out",))
+                if truth is not None:
+                    _check_against_truth(name, f"{label} seed {seed}", outs,
+                                         (("kernel", got), ("plain", want)),
+                                         truth)
+                    del case, got, want, truth
+                    continue
                 if len(outs) == 1:
                     got, want = (got,), (want,)
                 for out, a, b in zip(outs, got, want):
@@ -1812,6 +1875,10 @@ def phase_train(counters):
     zero = [k for k, n in launches.items() if n == 0]
     if zero:
         raise SmokeFailure(f"kernels never launched in training: {zero}")
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    if per_step != expected_train_launches(cfg.remat_policy):
+        raise SmokeFailure(f"training launches {per_step}, derived "
+                           f"{expected_train_launches(cfg.remat_policy)}")
     if bwd_by_shape["flash_bwd_dq"] != bwd_by_shape["flash_bwd_dkv"]:
         raise SmokeFailure(f"K6b and K6a launched apart: {bwd_by_shape}")
     if not all(math.isfinite(x) for x in losses + norms):
@@ -1821,6 +1888,322 @@ def phase_train(counters):
     if _sums(frozen) != frozen_before:
         raise SmokeFailure("a frozen parameter changed")
     return launches
+
+
+def expected_train_launches(policy):
+    """Launches of one batch-1 training step at 512x640, from the code. The
+    forwards: the garment UNet once (capture mode, no remat) and the main
+    UNet, each 16 self-attentions (K5), 22 resnets (two GN+convs each) and
+    16 transformer in-norms + conv_norm_out (K3); two VAE encodes without a
+    gradient, each one mid attention (K1) and 10 resnets (K2 / K4). The
+    backward: K6b and K6a at the main UNet's 16 self-attentions and the
+    garment UNet's first 15 (its last layer's output never reaches the
+    loss). The main UNet's recompute, of the blocks the gradient passes
+    through (all but the first resnet: its input does not depend on the
+    garment K/V and the UNet is frozen, so it records no graph): "full"
+    and "dots" re-run 21 resnets (K2 x 2) and 16 transformer blocks (K5,
+    K3); "names" and "heavy" save conv1 and the flash outputs and re-run
+    only the in-norms (K3); "none" re-runs nothing."""
+    blocks = policy in ("full", "dots")
+    norms = policy != "none"
+    return {"flash_fwd": 2, "flash_fwd_res": 32 + 16 * blocks,
+            "flash_bwd_dq": 31, "flash_bwd_dkv": 31,
+            "gn_silu_conv3x3": 88 + 40 + 42 * blocks,
+            "group_norm_act": 34 + 16 * norms}
+
+
+REMAT_POLICIES = ("full", "dots", "names", "heavy", "none")
+REMAT_STEPS = 4
+
+
+def phase_remat(counters):
+    """One 512x640 batch-1 training step from the same weights, batch and
+    draws under each remat policy (learning rate 0, so no weight moves):
+    the loss (equal across policies), the gradient norm (within 1e-3 of
+    "full"'s), peak memory and the median s/step of REMAT_STEPS steps after
+    a warm one, and the launches per step, which must equal
+    `expected_train_launches` (so "names" and "heavy" launch fewer K5 and
+    GN+conv forwards than "full": their recompute returns the saved
+    outputs)."""
+    import torch
+
+    from imagdressing_tpu_torch.core.config import TrainConfig
+    from imagdressing_tpu_torch.pipelines.dressing import DressingModels
+    from imagdressing_tpu_torch.train import step as tstep
+
+    models = DressingModels.init_random(0).cast_for_training(torch.bfloat16)
+    batch = _train_batch(1, 640, 512, 224, 49408, "cuda", 0)
+    draws = tstep.make_draws(0, 0, range(1), (80, 64, 4), 1000, "cuda")
+    rows = {}
+    for policy in REMAT_POLICIES:
+        cfg = TrainConfig(train_batch_size=1, learning_rate=0.0,
+                          remat_policy=policy)
+        state, frozen, tx = tstep.init_train_state(models, cfg)
+        step = tstep.make_train_step(models, cfg, tx)
+        state, m = step(state, frozen, batch, 0, draws=draws)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.reset()
+        torch.cuda.reset_peak_memory_stats()
+        seconds = []
+        for _ in range(REMAT_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, frozen, batch, 0, draws=draws)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        launches = {k: c.count / REMAT_STEPS for k, c in counters.items()}
+        rows[policy] = dict(
+            loss=loss, grad_norm=gnorm,
+            s_per_step=sorted(seconds)[REMAT_STEPS // 2],
+            step_s=seconds,
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            launches_per_step=launches,
+            expected=expected_train_launches(policy))
+        del state, frozen, tx, step, m
+        torch.cuda.empty_cache()
+    full = rows["full"]
+    problems = []
+    for policy, row in rows.items():
+        rel = abs(row["grad_norm"] - full["grad_norm"]) / full["grad_norm"]
+        row.update(grad_norm_rel_to_full=rel,
+                   grad_norm_bit_equal_to_full=row["grad_norm"]
+                   == full["grad_norm"],
+                   loss_equal_to_full=row["loss"] == full["loss"])
+        emit("remat", policy=policy, size="512x640", batch=1, **row)
+        if not (math.isfinite(row["loss"]) and row["loss"] == full["loss"]):
+            problems.append(f"{policy}: loss {row['loss']} vs {full['loss']}")
+        if not rel <= 1e-3:
+            problems.append(f"{policy}: grad norm {rel:.3g} off full's")
+        if row["launches_per_step"] != row["expected"]:
+            problems.append(f"{policy}: launches {row['launches_per_step']}"
+                            f" vs derived {row['expected']}")
+    for policy in ("names", "heavy"):
+        for k in ("flash_fwd_res", "gn_silu_conv3x3"):
+            if rows[policy]["launches_per_step"][k] >= \
+                    full["launches_per_step"][k]:
+                problems.append(f"{policy} recomputes {k} as full does")
+    del models
+    torch.cuda.empty_cache()
+    if problems:
+        raise SmokeFailure("remat: " + "; ".join(problems))
+    return rows
+
+
+TRAIN_CLI_PAIRS = 4
+
+
+def _events(path):
+    """The records of a TensorBoard event file, both CRCs checked."""
+    import struct
+
+    from imagdressing_tpu_torch.train.trackers import _masked_crc
+
+    with open(path, "rb") as f:
+        data = f.read()
+    records, i = [], 0
+    while i < len(data):
+        head = data[i:i + 8]
+        (length,) = struct.unpack("<Q", head)
+        payload = data[i + 12:i + 12 + length]
+        crcs = struct.unpack("<II", data[i + 8:i + 12]
+                             + data[i + 12 + length:i + 16 + length])
+        if crcs != (_masked_crc(head), _masked_crc(payload)):
+            raise SmokeFailure(f"train_cli: bad TFRecord CRC in {path}")
+        records.append(payload)
+        i += 16 + length
+    return records
+
+
+def phase_train_cli(paths, counters):
+    """`apps.train_cli.main` at full SD1.5 width from the base files of
+    phase_load: TRAIN_CLI_PAIRS synthetic person / garment JPEG pairs
+    (768x576) and a manifest; the CLI's resize and crop defaults (shorter
+    side 512, crop 640x512), batch 1, 4 steps, `--checkpointing_steps 2`,
+    `--report_to all`; then `--resume_from_checkpoint` to step 6; then
+    `apps.dress.main --trained_ckpt` of one garment (`basic`, STEPS steps)
+    beside the same garment from the base stack. Checks: finite losses, one
+    metrics line a step, the TensorBoard files parse, checkpoints 2, 4 and
+    6 (max_to_keep 3), the step-4 checkpoint bit-equal to the first run's
+    final state, the resumed run starting at step 4, the merged trainables
+    equal to the checkpoint's cast to bf16, the frozen weights unchanged by
+    the merge, another served image than the base stack's, and the
+    launches per step and per image as derived."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from imagdressing_tpu_torch.apps import dress, loader, train_cli
+    from imagdressing_tpu_torch.apps import image_utils as iu
+    from imagdressing_tpu_torch.pipelines.dressing import TRAINABLE_KEYS
+    from imagdressing_tpu_torch.runtime import native
+    from imagdressing_tpu_torch.train import checkpoint as ck
+    from imagdressing_tpu_torch.train import step as tstep
+
+    root = os.path.dirname(paths["base_dir"])
+    data = os.path.join(root, "igpair")
+    os.makedirs(data)
+    items = []
+    for i in range(TRAIN_CLI_PAIRS):
+        for kind, seed in (("person", 40 + i), ("cloth", 60 + i)):
+            iu.write_image(os.path.join(data, f"{kind}{i}.jpg"),
+                           _garment(seed, 768, 576))
+        items.append({"image_file": f"person{i}.jpg",
+                      "cloth_file": f"cloth{i}.jpg",
+                      "text": ["a red dress", "a summer shirt"]})
+    manifest = os.path.join(data, "manifest.json")
+    with open(manifest, "w") as f:
+        json.dump(items, f)
+    out = os.path.join(root, "train_run")
+    ckpt_dir = os.path.join(out, "checkpoints")
+    args = ["--data_json_file", manifest, "--data_root_path", data,
+            "--base_dir", paths["base_dir"], "--vae_path", paths["vae_path"],
+            "--image_encoder_path", paths["image_encoder_path"],
+            "--output_dir", out, "--train_batch_size", "1",
+            "--checkpointing_steps", "2", "--logging_steps", "1",
+            "--learning_rate", "1e-4", "--lr_warmup_steps", "1",
+            "--report_to", "all", "--device", "cuda"]
+
+    for c in counters.values():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train_cli.main(args + ["--num_train_steps", "4"])
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: c.count / 4 for k, c in counters.items()}
+    in_memory = tstep.state_to_host(state)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    saved4, extra4 = ck.read_checkpoint(ckpt_dir, 4)
+    differ = [f"{k}.{n}" for k in TRAINABLE_KEYS
+              for n, t in in_memory["params"][k].items()
+              if not torch.equal(t, saved4["params"][k][n])]
+    differ += [k for k, v in in_memory["opt_state"].items()
+               if (not torch.equal(v, saved4["opt_state"][k])
+                   if torch.is_tensor(v) else v != saved4["opt_state"][k])]
+    if saved4["step"] != 4:
+        differ.append("step")
+    del in_memory
+
+    t0 = time.perf_counter()
+    state = train_cli.main(args + ["--num_train_steps", "6",
+                                   "--resume_from_checkpoint"])
+    resume_s = time.perf_counter() - t0
+    final_step = state.step
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        lines = [json.loads(ln) for ln in f]
+    events = [e for name in sorted(os.listdir(os.path.join(out, "logs")))
+              for e in _events(os.path.join(out, "logs", name))]
+    steps_saved = ck.saved_steps(ckpt_dir)
+    trained = ck.read_checkpoint(ckpt_dir, 6)[0]["params"]
+
+    # serve: the base stack's image, then the trained checkpoint's
+    cloth = os.path.join(root, "train_garment.png")
+    iu.write_image(cloth, _garment(80))
+    merged = {}
+    merge = loader.merge_trained_checkpoint
+
+    def recording_merge(models, ckpt):
+        frozen = {k: m for k, m in models.modules().items()
+                  if k not in TRAINABLE_KEYS}
+        merged["frozen_before"] = _sums(frozen)
+        models = merge(models, ckpt)
+        merged["frozen_after"] = _sums(frozen)
+        merged["trainables"] = {
+            k: {n: t.detach().cpu()
+                for n, t in getattr(models, k).state_dict().items()}
+            for k in TRAINABLE_KEYS}
+        return models
+
+    served = {}
+    loader.merge_trained_checkpoint = recording_merge
+    try:
+        for tag, extra in (("base", []), ("trained",
+                                          ["--trained_ckpt", ckpt_dir])):
+            for c in counters.values():
+                c.reset()
+            t0 = time.perf_counter()
+            dress.main(["--base_dir", paths["base_dir"],
+                        "--vae_path", paths["vae_path"],
+                        "--image_encoder_path", paths["image_encoder_path"],
+                        "--model_ckpt", paths["model_ckpt"],
+                        "--cloth_path", cloth,
+                        "--num_inference_steps", str(STEPS),
+                        "--output_path", os.path.join(root, f"served_{tag}"),
+                        "--device", "cuda"] + extra)
+            served[tag] = dict(
+                s=time.perf_counter() - t0,
+                image=iu.read_image(os.path.join(
+                    root, f"served_{tag}", "train_garment.png")),
+                launches={k: c.count for k, c in counters.items()
+                          if k in ("flash_fwd", "gn_silu_conv3x3",
+                                   "group_norm_act")})
+    finally:
+        loader.merge_trained_checkpoint = merge
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    wrong_trained = [f"{k}.{n}" for k in TRAINABLE_KEYS
+                     for n, t in trained[k].items()
+                     if not torch.equal(merged["trainables"][k][n],
+                                        t.to(torch.bfloat16))]
+    width = served["base"]["image"].shape[1] // 2
+    image_moved = not np.array_equal(served["base"]["image"][:, width:],
+                                     served["trained"]["image"][:, width:])
+    image_ok = bool(served["trained"]["image"][:, width:].std() > 0)
+    want_step = expected_train_launches("full")
+    want_image = expected_launches(STEPS, False, 1)
+    step_s = [ln["step_time_s"] for ln in lines]
+    data_s = [ln["data_time_s"] for ln in lines]
+    checks = {
+        "losses_finite": all(math.isfinite(ln["loss"])
+                             and math.isfinite(ln["grad_norm"])
+                             for ln in lines),
+        "one_line_a_step": [ln["step"] for ln in lines] == list(range(1, 7)),
+        "tensorboard_parses": len(events) == 8
+        and sum(b"brain.Event:2" in e for e in events) == 2,
+        "checkpoints_2_4_6": steps_saved == [2, 4, 6],
+        "step4_bit_equal": not differ and extra4 == {"step": 4},
+        "resumed_from_4": final_step == 6 and [ln["step"] for ln in lines][
+            4:] == [5, 6],
+        "merged_equal_checkpoint_bf16": not wrong_trained,
+        "frozen_unchanged": merged["frozen_before"]
+        == merged["frozen_after"],
+        "image_differs_from_base": image_moved and image_ok,
+        "launches_per_step": launches == {k: want_step[k] for k in launches},
+        "launches_per_image": all(
+            served[t]["launches"] == {k: want_image[k]
+                                      for k in served[t]["launches"]}
+            for t in served),
+    }
+    emit("train_cli", size="512x640", batch=1, pairs=TRAIN_CLI_PAIRS,
+         jpeg=f"{768}x{576}",
+         decoder="native (libjpeg + image_ops.cpp)" if native.available()
+         else "PIL + train.data.resize",
+         first_run_s=first_s, resume_run_s=resume_s,
+         s_per_step=float(np.median(step_s)),
+         data_s_per_step=float(np.median(data_s)),
+         step_time_s=step_s, data_time_s=data_s,
+         images_per_sec=float(np.median([ln["images_per_sec"]
+                                         for ln in lines])),
+         losses=[ln["loss"] for ln in lines],
+         peak_gib=peak / 2**30, launches_per_step=launches,
+         expected_per_step={k: want_step[k] for k in launches},
+         served_s={t: served[t]["s"] for t in served},
+         launches_per_image={t: served[t]["launches"] for t in served},
+         checkpoints=steps_saved, state_differs=differ[:5],
+         merged_differs=wrong_trained[:5], checks=checks,
+         ok=all(checks.values()))
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SmokeFailure(f"train_cli: {failed}")
 
 
 def _check_parse_contract(parse, face, hw):
@@ -2359,12 +2742,13 @@ def main() -> int:
             "gn_silu_conv3x3": counts["gn_silu_conv3x3"]
             + counts["gn_silu_conv3x3[vae_pixel]"],
             "group_norm_act": counts["group_norm_act"]})
-        train = phase_train({"flash_fwd": fa.COUNTER,
-                             "gn_silu_conv3x3": fgc.COUNTER,
-                             "group_norm_act": fg.COUNTER,
-                             "flash_fwd_res": fa.RES_COUNTER,
-                             "flash_bwd_dkv": fa.DKV_COUNTER,
-                             "flash_bwd_dq": fa.DQ_COUNTER})
+        training = {"flash_fwd": fa.COUNTER, "gn_silu_conv3x3": fgc.COUNTER,
+                    "group_norm_act": fg.COUNTER,
+                    "flash_fwd_res": fa.RES_COUNTER,
+                    "flash_bwd_dkv": fa.DKV_COUNTER,
+                    "flash_bwd_dq": fa.DQ_COUNTER}
+        train = phase_train(training)
+        phase_remat(training)
         counts["bn_act"] = phase_parse(fba.COUNTER)
         with tempfile.TemporaryDirectory(prefix="_ckpt_smoke_",
                                          dir=ROOT) as root:
@@ -2372,6 +2756,7 @@ def main() -> int:
             phase_serve(models, paths, inference)
             del models
             phase_dress(paths)
+            phase_train_cli(paths, training)
             phase_openpose_check()
             pre = write_preprocess(root)
             phase_person(root)

@@ -20,11 +20,14 @@ the same device, from the checkpoints named by IMAGDRESSING_OPENPOSE_CKPT,
 IMAGDRESSING_ATR_CKPT and IMAGDRESSING_LIP_CKPT) and the inpaint
 ControlNet's condition, once per photo.
 
+--trained_ckpt lays the latest checkpoint of the port's trainer
+(`apps.train_cli`'s `<output_dir>/checkpoints`) over the loaded stack: the
+garment UNet, its adapters and the Resampler, cast to the compute dtype.
+
 Runs on the card (`--device cuda`, the default; raises on a host without
 one) or, with `--device cpu`, with every kernel's plain version. Not ported
-yet, and raising with their ROADMAP pointer: --trained_ckpt (the JAX
-trainer's orbax checkpoints), --data_parallel / --tensor_parallel other
-than 1 (multi-GPU).
+yet, and raising with their ROADMAP pointer: --data_parallel /
+--tensor_parallel other than 1 (multi-GPU).
 """
 
 from __future__ import annotations
@@ -49,8 +52,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--controlnet_path", default=None)
     p.add_argument("--ip_ckpt", default=None)
     p.add_argument("--trained_ckpt", default=None,
-                   help="an orbax checkpoint of the JAX trainer: not "
-                        "supported by the port yet")
+                   help="a checkpoints/ dir of the port's trainer: its "
+                        "latest step's trained weights replace the "
+                        "garment UNet, adapters and Resampler")
     p.add_argument("--cloth_path", type=str, default=None)
     p.add_argument("--cloth_dir", type=str, default=None)
     p.add_argument("--pose_path", type=str, default=None)
@@ -105,16 +109,14 @@ def main(argv=None):
     args = build_argparser().parse_args(argv)
     from imagdressing_tpu_torch.apps import image_utils as iu
     from imagdressing_tpu_torch.apps.loader import (
-        TRAINED_CKPT_PENDING,
         load_dressing_models,
+        merge_trained_checkpoint,
     )
     from imagdressing_tpu_torch.apps.serve import MULTI_GPU_PENDING
     from imagdressing_tpu_torch.apps.tokenizer import load_tokenizer
     from imagdressing_tpu_torch.core.config import PRESETS
     from imagdressing_tpu_torch.pipelines.dressing import DressingPipeline
 
-    if args.trained_ckpt:
-        raise SystemExit(TRAINED_CKPT_PENDING)
     if args.data_parallel != 1 or args.tensor_parallel != 1:
         raise SystemExit(MULTI_GPU_PENDING)
     if not args.cloth_dir and not args.cloth_path:
@@ -139,6 +141,8 @@ def main(argv=None):
         lora_scale=args.lora_scale if preset.use_ipa else 0.0,
         device=args.device,
     )
+    if args.trained_ckpt:
+        models = merge_trained_checkpoint(models, args.trained_ckpt)
     tokenizer = load_tokenizer(os.path.join(args.base_dir, "tokenizer"))
     pipe = DressingPipeline(models, preset, device=args.device)
 

@@ -18,9 +18,11 @@ Each file goes through `convert.torch_sd` to the JAX-layout tree, then
 `DressingModels.from_state_dicts` copies into modules built without random
 initialisation, in the requested dtype, on the requested device.
 
-The orbax overlay of a trained checkpoint (the JAX package's
-`restore_trained_params` / `merge_trained_checkpoint`) waits for the port's
-training checkpoints (`train/checkpoint.py`, ROADMAP).
+A trained checkpoint of the port's trainer (`train/checkpoint.py`) is laid
+over a loaded stack by `merge_trained_checkpoint` (the JAX package's
+orbax overlay, `restore_trained_params` / `merge_trained_checkpoint`). A JAX
+orbax checkpoint reaches the port as the reference `.pt` that JAX's
+`convert/export_torch` writes, through `model_ckpt`.
 """
 
 from __future__ import annotations
@@ -51,15 +53,15 @@ from imagdressing_tpu_torch.models.unet import (
 )
 from imagdressing_tpu_torch.ops.nn import init_module
 from imagdressing_tpu_torch.pipelines.dressing import (
+    TRAINABLE_KEYS,
     Device,
     DressingModels,
     resolve_device,
 )
-
-TRAINED_CKPT_PENDING = (
-    "--trained_ckpt (an orbax checkpoint of the JAX trainer) is not "
-    "supported by the PyTorch port yet: it waits for the port's training "
-    "checkpoints (train/checkpoint.py; ROADMAP Queue 1, training)")
+from imagdressing_tpu_torch.train.checkpoint import (
+    latest_step,
+    read_checkpoint,
+)
 
 
 def _find_weights(path: str) -> str:
@@ -156,6 +158,39 @@ def load_dressing_models(
         _fold_unet_lora(models.unet, *lora, lora_scale)
     if dtype is not None:
         models.cast(dtype)
+    return models
+
+
+def restore_trained_params(ckpt_dir: str
+                           ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The latest checkpoint of the port's trainer under `ckpt_dir` -> the
+    trainable state dicts {ref_unet, ref_adapters, resampler} (fp32 CPU
+    tensors). The serve side of the train -> serve loop: inference needs
+    only the trained weights, not the optimizer state."""
+    step = latest_step(ckpt_dir)
+    if step is None:
+        raise FileNotFoundError(f"no training checkpoint under {ckpt_dir}")
+    params = read_checkpoint(ckpt_dir, step)[0]["params"]
+    missing = set(TRAINABLE_KEYS) - set(params)
+    if missing:
+        raise KeyError(f"checkpoint at {ckpt_dir} lacks trainable models "
+                       f"{sorted(missing)}")
+    return params
+
+
+def merge_trained_checkpoint(models: DressingModels, ckpt_dir: str
+                             ) -> DressingModels:
+    """Overlay a trained checkpoint's {ref_unet, ref_adapters, resampler}
+    onto a loaded stack, in place, cast to the stack's compute dtype (its
+    main UNet's); the frozen models (main UNet, VAE, encoders) keep their
+    base weights: the reference's trainable / frozen split. Returns
+    `models`."""
+    trained = restore_trained_params(ckpt_dir)
+    compute = models.dtype
+    for name in TRAINABLE_KEYS:
+        module = getattr(models, name)
+        module.to(compute)
+        module.load_state_dict(trained[name], strict=True)
     return models
 
 

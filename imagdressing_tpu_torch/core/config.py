@@ -204,9 +204,9 @@ SAMPLERS = ("ddim", "dpm2m", "unipc")
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training hyperparameters (reference run.sh:4-19 + train.py defaults),
-    field for field as the JAX package's `TrainConfig`. The port runs
-    `remat_policy` "full" (block recompute) and "none"; the selective
-    policies "dots", "names" and "heavy" are not ported."""
+    field for field as the JAX package's `TrainConfig`. `remat_policy`:
+    "full" (block recompute), "dots", "names", "heavy" (selective; see
+    `models.unet.resolve_remat_policy`) or "none"."""
 
     learning_rate: float = 5e-5
     weight_decay: float = 1e-2

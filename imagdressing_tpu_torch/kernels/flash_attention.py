@@ -30,7 +30,9 @@ same.
 
 `flash_attention` is differentiable. When grad mode is on and any operand
 requires a gradient, it runs `FlashAttentionFunction` (K5 forward, K6b/K6a
-backward); otherwise K1. A CUDA tensor launches the kernels or raises; a CPU
+backward); otherwise K1. The Function's forward calls K5 through one
+dispatcher op (`flash_fwd_res_op`), which a selective-checkpoint policy
+can save by name. A CUDA tensor launches the kernels or raises; a CPU
 tensor runs the plain versions (`flash_attention_plain`,
 `flash_attention_res_plain`, `flash_attention_bwd_plain`), which repeat the
 kernels' arithmetic and roundings.
@@ -456,6 +458,22 @@ def flash_attention_bwd(q, k, v, k_ref, v_ref, scale, out, lse, o2, g):
     return _launch_bwd(q, k, v, k_ref, v_ref, scale, out, lse, o2, g)[0]
 
 
+@torch.library.custom_op("imagdressing_tpu_torch::flash_fwd_res",
+                         mutates_args=())
+def flash_fwd_res_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     k_ref: Optional[torch.Tensor],
+                     v_ref: Optional[torch.Tensor],
+                     scale: Optional[torch.Tensor]
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`flash_attention_res` as one dispatcher op (o2 empty with one
+    source). The ctypes launch inside is invisible to PyTorch's dispatcher;
+    as an op, a selective-checkpoint policy can save its outputs by name
+    (`models.unet`'s "names" and "heavy" remat), so the backward's recompute
+    returns them instead of launching K5 again."""
+    out, lse, o2 = flash_attention_res(q, k, v, k_ref, v_ref, scale)
+    return out, lse, out.new_empty(0) if o2 is None else o2
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """The JAX package's `_fa_diff` custom VJP: the forward saves (q, k, v,
     k_ref, v_ref, scale, out, lse, o2); the backward runs K6a and K6b, and
@@ -464,7 +482,8 @@ class FlashAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, k_ref, v_ref, scale):
-        out, lse, o2 = flash_attention_res(q, k, v, k_ref, v_ref, scale)
+        out, lse, o2 = flash_fwd_res_op(q, k, v, k_ref, v_ref, scale)
+        o2 = o2 if k_ref is not None else None
         ctx.save_for_backward(q, k, v, k_ref, v_ref, scale, out, lse, o2)
         return out
 

@@ -28,11 +28,17 @@ i.e. stored as (Cout, 3, 3, Cin), which is what the kernel reads and what
 
 Gradients: as in the JAX package (`fused_gn_conv.py:_bwd`, `jax.vjp` of
 `_xla_reference`), the backward recomputes the unfused chain in PyTorch ops
-(`gn_silu_conv3x3_reference`: GroupNorm with fp32 statistics, SiLU, cuDNN's
-conv) and differentiates it; the TPU package has no backward kernel here.
-When grad mode is on and an operand requires a gradient,
-`gn_silu_conv3x3` returns the output of `GnSiluConv3x3Function`, whose
-forward is the kernel.
+and differentiates it; the TPU package has no backward kernel here. The
+chain it differentiates is the kernel's own function,
+`gn_silu_conv3x3_plain` (temb folded into the fp32 statistics, the
+normalized activation rounded once), not JAX's `_xla_reference`, which adds
+temb to x in x's dtype: in bf16 that rounding made d(temb), a sum over
+every pixel, twice as far from the fp32 gradient as the plain chain's
+(1.15 against 0.51 at 1x80x64x320 on an H100, `tools/gn_conv_grad_probe.py`,
+against the bound 0.86 of `chip_smoke.py`'s check). In fp32
+the two chains agree to rounding. When grad mode is on and an operand
+requires a gradient, `gn_silu_conv3x3` returns the output of
+`GnSiluConv3x3Function`, whose forward is the kernel.
 """
 
 from __future__ import annotations
@@ -52,7 +58,6 @@ from imagdressing_tpu_torch.kernels.fused_groupnorm import (
     MAX_BATCH,
     arrival_counts,
     gn_plan,
-    group_norm_act_reference,
     scale_shift,
     stream_plan,
     vjp_of_reference,
@@ -184,21 +189,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def gn_silu_conv3x3_reference(x: torch.Tensor, gamma: torch.Tensor,
-                              beta: torch.Tensor, weight: torch.Tensor,
-                              bias: torch.Tensor, *, num_groups: int,
-                              eps: float,
-                              add: Optional[torch.Tensor] = None
-                              ) -> torch.Tensor:
-    """The JAX package's `_xla_reference`: the GroupNorm+SiLU reference in
-    x's dtype, then the conv in that dtype and the bias. The backward
-    differentiates this chain."""
-    h = group_norm_act_reference(x, gamma, beta, num_groups=num_groups,
-                                 eps=eps, act="silu", add=add)
-    y = F.conv2d(h.permute(0, 3, 1, 2), weight.to(h.dtype), None, padding=1)
-    return y.permute(0, 2, 3, 1) + bias.to(y.dtype)
-
-
 def _forward(x, gamma, beta, weight, bias, add, num_groups, eps):
     """The plain version for a CPU tensor, the kernel for a CUDA tensor."""
     if x.device.type == "cpu":
@@ -208,8 +198,9 @@ def _forward(x, gamma, beta, weight, bias, add, num_groups, eps):
 
 
 class GnSiluConv3x3Function(torch.autograd.Function):
-    """Kernel forward; the backward differentiates
-    `gn_silu_conv3x3_reference` (JAX `fused_gn_silu_conv`'s custom VJP)."""
+    """Kernel forward; the backward recomputes and differentiates
+    `gn_silu_conv3x3_plain` (JAX `fused_gn_silu_conv`'s custom VJP, on the
+    kernel's own chain: see the module note)."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, weight, bias, add, num_groups, eps):
@@ -223,8 +214,7 @@ class GnSiluConv3x3Function(torch.autograd.Function):
         cfg = ctx.cfg
 
         def ref(x_, gw_, gb_, w_, b_, a_):
-            return gn_silu_conv3x3_reference(x_, gw_, gb_, w_, b_, add=a_,
-                                             **cfg)
+            return gn_silu_conv3x3_plain(x_, gw_, gb_, w_, b_, add=a_, **cfg)
 
         grads = vjp_of_reference(ref, ctx.saved_tensors,
                                  ctx.needs_input_grad[:6], g)

@@ -19,20 +19,29 @@ self-attention and the garment-cross branch run K1 single-source, the
 IP-Adapter branch over its few face tokens stays plain, as in the JAX
 package).
 
-Training: `forward(..., remat=True)` recomputes each resnet and each
-transformer block in the backward (`torch.utils.checkpoint`, non-reentrant),
-the JAX package's block remat (`remat_policy` "full"). Capture mode never
-remats: the captured hidden states are a side output.
+Training: `forward(..., remat=True, remat_policy=...)` recomputes blocks in
+the backward (`torch.utils.checkpoint`, non-reentrant), with the JAX
+package's policies (`resolve_remat_policy`): "full" saves nothing inside a
+resnet or transformer block; "dots" saves every matmul output; "names" the
+resnet conv1 output and the pre-projection self-attention output (JAX's
+`rematsave_conv` / `rematsave_attn`); "heavy" both; "none" recomputes
+nothing. Capture mode never remats: the captured hidden states are a side
+output.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Union
+import functools
+from typing import Callable, Dict, List, Optional, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from imagdressing_tpu_torch.core.config import UNetConfig
 from imagdressing_tpu_torch.kernels.fused_gn_conv import gn_silu_conv3x3
@@ -340,22 +349,25 @@ class UNet(nn.Module):
         (B, H, W, C_out), and with capture=True also {attn1 layer name:
         self-attention input (B, S, C)}; with down_only=True (the ControlNet
         trunk) (skips, mid output, temb), `conv_in_extra` added to conv_in's
-        output. remat=True (training) recomputes every resnet and transformer
-        block in the backward (remat_policy "full" or None; "none" turns it
-        off, see `uses_block_remat`)."""
+        output. remat=True (training) recomputes blocks in the backward
+        under `remat_policy` (None is "full"; see `resolve_remat_policy`)."""
         cfg = self.cfg
         if self.encoder_only and not down_only:
             raise ValueError("an encoder-only UNet runs with down_only=True")
         resnet_fn, transformer_fn = self._resnet, self._transformer2d
-        if remat and not capture and uses_block_remat(remat_policy):
+        policy = resolve_remat_policy(remat_policy)
+        if remat and not capture and policy is not None:
+            kw = dict(use_reentrant=False)
+            if policy.context_fn is not None:
+                kw["context_fn"] = policy.context_fn
+            if not policy.saves_conv:
 
-            def resnet_fn(p, x, temb):
-                return checkpoint(self._resnet, p, x, temb,
-                                  use_reentrant=False)
+                def resnet_fn(p, x, temb):
+                    return checkpoint(self._resnet, p, x, temb, **kw)
 
             def transformer_fn(p, x, context, prefix, cond, captured):
                 return checkpoint(self._transformer2d, p, x, context, prefix,
-                                  cond, None, use_reentrant=False)
+                                  cond, None, **kw)
 
         cond = cond if cond is not None else Conditioning()
         b = sample.shape[0]
@@ -431,16 +443,71 @@ class UNet(nn.Module):
         return tp.transformer_blocks[int(parts[-3])]
 
 
-def uses_block_remat(policy: Optional[str]) -> bool:
-    """True for block remat ("full", or None), False for "none". JAX's
-    selective policies ("dots", "names", "heavy") are not ported."""
-    if policy in ("dots", "names", "heavy"):
-        raise NotImplementedError(
-            f"remat policy {policy!r}: the port runs 'full' and 'none'")
-    if policy not in (None, "full", "none"):
-        raise ValueError(f"unknown remat policy {policy!r} "
+# the matmuls of the "dots" policy as the dispatcher sees them (F.linear
+# and einsum lower to these), the JAX package's `dots_saveable`
+DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+           torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+# the named saves of "names": the flash forward's outputs (out, and the
+# LSE and O2 its backward reads), `rematsave_attn` of the JAX package
+NAMED_SAVE_OPS = (torch.ops.imagdressing_tpu_torch.flash_fwd_res.default,)
+REMAT_POLICIES = ("full", "dots", "names", "heavy", "none")
+
+
+class RematPolicy:
+    """A resolved remat policy: `context_fn` for `torch.utils.checkpoint`
+    (None: save nothing, "full"), and whether conv1 outputs are saved.
+
+    `saves_conv` ("names", "heavy") runs the resnets outside any
+    checkpoint: `GnSiluConv3x3Function` saves only its inputs and recomputes
+    its chain in its own backward, so an unchecked resnet keeps exactly the
+    block input, conv1's output (JAX's `rematsave_conv`) and the small
+    temb projection's input, and no GN+conv kernel runs again in the
+    backward. A checkpoint that saved conv1's output would still re-launch
+    conv2's kernel, which the recompute has to pass through."""
+
+    def __init__(self, dots: bool, names: bool):
+        self.saves_conv = names
+        save = (DOT_OPS if dots else ()) + (NAMED_SAVE_OPS if names else ())
+        self.context_fn: Optional[Callable] = None
+        if save:
+            self.context_fn = functools.partial(
+                create_selective_checkpoint_contexts,
+                functools.partial(_save_ops, frozenset(save)))
+
+
+def _save_ops(save, ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in save \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def resolve_remat_policy(name: Optional[str]) -> Optional[RematPolicy]:
+    """The training remat knob (`TrainConfig.remat_policy`), with the JAX
+    package's meanings (`imagdressing_tpu/models/unet.py:
+    resolve_remat_policy`):
+
+      "full" (or None): save nothing inside a block; the whole block
+              forward re-runs in the backward. Least memory.
+      "dots": save every matmul output (q/k/v/out projections, proj_in /
+              proj_out, both feed-forward matmuls, the time-embedding
+              projections, the plain attention's products). The GN+conv
+              and flash kernels re-run.
+      "names": save the resnet conv1 outputs and the self-attention's flash
+              forward outputs; linears re-run, the GN+conv and flash
+              forwards do not.
+      "heavy": "dots" plus "names": the recompute holds no conv and no
+              flash forward, only norms and elementwise chains.
+      "none": no recompute (returns None).
+
+    The cross-attention's output is not saved under "names": its plain
+    backward needs the softmax probabilities, which the recompute rebuilds
+    from q and k anyway, so the save would cost memory and spare no op."""
+    if name not in (None,) + REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {name!r} "
                          "(full | dots | names | heavy | none)")
-    return policy != "none"
+    if name == "none":
+        return None
+    return RematPolicy(dots=name in ("dots", "heavy"),
+                       names=name in ("names", "heavy"))
 
 
 # ---------------------------------------------------------------------------

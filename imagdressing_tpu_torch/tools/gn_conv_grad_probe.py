@@ -2,17 +2,16 @@
 with both bf16 chains held against fp32 gradients of the same inputs.
 
 `chip_smoke.py` checks `gn_silu_conv3x3.grad` (1x80x64x320->320, temb
-added) in bf16 against autograd of the plain version. The two sides are
-different bf16 chains: the Function's backward differentiates
-`gn_silu_conv3x3_reference` (x + temb rounded to bf16, the GroupNorm's
-output rounded to bf16), the plain side `gn_silu_conv3x3_plain` (temb
-folded into fp32 statistics). This tool builds the check's case at each
-seed (a case's seed is its index in `chip_smoke.check_cases()`), takes
-both bf16 gradients twice, and the fp32 gradients of both functions on the
-same inputs cast up to fp32. One JSON line per seed and output:
+added) in bf16: the Function (kernel forward, its backward differentiating
+`gn_silu_conv3x3_plain`) and autograd of the plain version, each against
+the fp32 gradients of the same inputs. This tool builds the check's case at
+each seed (a case's seed is its index in `chip_smoke.check_cases()`; the
+check also runs seed 75), takes both bf16 gradients twice, and the fp32
+gradients of both functions on the same inputs cast up to fp32. One JSON
+line per seed and output:
 
-  kernel_vs_plain    the check's reading, max |kernel - plain| in bf16,
-                     with its tolerance (1e-2 + 1e-2 * max |plain|)
+  kernel_vs_plain    max |kernel - plain| in bf16, with the check's rule
+                     as `tol` (1e-2 + 1e-2 * max |plain|)
   repeat_bit_equal   whether the second run gave the same bits (both sides)
   kernel_vs_fp32     max |kernel bf16 - kernel chain in fp32|
   plain_vs_fp32      max |plain bf16 - plain chain in fp32|

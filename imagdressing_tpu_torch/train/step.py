@@ -38,7 +38,7 @@ Differences from the JAX package, by design:
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -375,6 +375,54 @@ def init_train_state(models: DressingModels, cfg: TrainConfig
     state = TrainState(step=0, params=trainable,
                        opt_state=tx.init(trainable_parameters(trainable)))
     return state, frozen, tx
+
+
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    """A CPU copy that is complete when this returns (a copy from the card
+    waits for it)."""
+    return t.detach().to("cpu", copy=True)
+
+
+def state_to_host(state: TrainState) -> Dict[str, Any]:
+    """The state as CPU tensors and Python numbers, copied (the trainer
+    updates its modules in place): {"step", "params": {name: state dict of
+    the fp32 masters}, "opt_state": {OptState field: value}}. The form
+    `train.checkpoint` writes."""
+    params = {k: {n: _host_copy(t)
+                  for n, t in state.params[k].state_dict().items()}
+              for k in TRAINABLE_KEYS}
+    opt = {f.name: getattr(state.opt_state, f.name)
+           for f in dataclasses.fields(OptState)}
+    opt = {k: _host_copy(v) if torch.is_tensor(v) else v
+           for k, v in opt.items()}
+    return {"step": int(state.step), "params": params, "opt_state": opt}
+
+
+@torch.no_grad()
+def state_from_host(template: TrainState, host: Dict[str, Any]
+                    ) -> TrainState:
+    """`state_to_host`'s form loaded into the template's modules (in place,
+    exact) and onto its optimizer state's device; the template's tensors
+    fix each shape and dtype."""
+    for k in TRAINABLE_KEYS:
+        template.params[k].load_state_dict(host["params"][k], strict=True)
+    opt = {}
+    for f in dataclasses.fields(OptState):
+        want, got = getattr(template.opt_state, f.name), \
+            host["opt_state"][f.name]
+        if torch.is_tensor(want) or torch.is_tensor(got):
+            if not (torch.is_tensor(want) and torch.is_tensor(got)) \
+                    or want.shape != got.shape or want.dtype != got.dtype:
+                raise ValueError(
+                    f"checkpoint opt_state.{f.name}: "
+                    f"{getattr(got, 'shape', got)} "
+                    f"{getattr(got, 'dtype', '')}, the trainer has "
+                    f"{getattr(want, 'shape', want)} "
+                    f"{getattr(want, 'dtype', '')}")
+            got = got.to(want.device, copy=True)
+        opt[f.name] = got
+    return TrainState(step=int(host["step"]), params=template.params,
+                      opt_state=OptState(**opt))
 
 
 def make_train_step(models: DressingModels, cfg: TrainConfig, tx: Optimizer,

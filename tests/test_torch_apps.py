@@ -728,8 +728,9 @@ def test_dress_cli_pose_cross_product(cli, tmp_path):
 
 
 def test_dress_cli_refusals(cli, tmp_path):
-    """Without --device cpu on a host without a card, the CLI raises; the
-    option the port has not got yet raises with its ROADMAP pointer."""
+    """Without --device cpu on a host without a card, the CLI raises; a
+    --trained_ckpt directory without checkpoints raises FileNotFoundError;
+    the option the port has not got yet raises with its ROADMAP pointer."""
     run, _, _ = cli
     cloth = tmp_path / "shirt.png"
     cloth.write_bytes(pil_png(garment(0, 64, 64)))
@@ -737,8 +738,9 @@ def test_dress_cli_refusals(cli, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             run(base)
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        run(base + ["--trained_ckpt", "ckpt", "--device", "cpu"])
+    with pytest.raises(FileNotFoundError, match="no training checkpoint"):
+        run(base + ["--trained_ckpt", str(tmp_path / "ckpt"), "--device",
+                    "cpu"])
     with pytest.raises(SystemExit, match="multi-GPU"):
         run(base + ["--data_parallel", "2", "--device", "cpu"])
 

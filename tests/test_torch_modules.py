@@ -259,12 +259,50 @@ def test_block_remat_gives_the_same_gradients(small_unet):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
 
 
-@pytest.mark.parametrize("policy", ["dots", "names", "heavy"])
-def test_selective_remat_is_not_ported(small_unet, policy):
-    x = torch.zeros((1, 8, 8, 4))
-    with pytest.raises(NotImplementedError, match=policy):
-        small_unet(x, 0, torch.zeros((1, 77, 32)), remat=True,
-                   remat_policy=policy)
+@pytest.mark.parametrize("policy", ["full", "dots", "names", "heavy"])
+def test_remat_policy_matches_no_remat(small_unet, policy, monkeypatch):
+    """Every remat policy recomputes, never changes, the math: the loss and
+    every parameter gradient against the remat-free backward at the JAX
+    package's tolerances (`tests/test_unet.py`'s
+    test_remat_policies_match_no_remat: loss rtol 1e-6, gradients rtol
+    1e-5, atol 1e-6). And the named saves work: under "names" and "heavy"
+    the backward runs no flash forward (K5's op) and no GN+conv forward
+    again, under "full" and "dots" each runs twice."""
+    from imagdressing_tpu_torch.kernels import flash_attention as fa
+    from imagdressing_tpu_torch.kernels import fused_gn_conv as fgc
+
+    calls = {"flash": 0, "gn_conv": 0}
+
+    def counted(fn, key):
+        def wrapped(*args):
+            calls[key] += 1
+            return fn(*args)
+        return wrapped
+
+    monkeypatch.setattr(fa, "flash_attention_res",
+                        counted(fa.flash_attention_res, "flash"))
+    monkeypatch.setattr(fgc, "_forward", counted(fgc._forward, "gn_conv"))
+    rng = np.random.default_rng(3)
+    x = _t(rng.standard_normal((1, 16, 16, 4)).astype(np.float32))
+    ctx = _t(rng.standard_normal((1, 77, 32)).astype(np.float32))
+    params = list(small_unet.parameters())
+    out = {}
+    for remat in (False, True):
+        for k in calls:
+            calls[k] = 0
+        y = small_unet(x, torch.tensor([500]), ctx, remat=remat,
+                       remat_policy=policy)
+        loss = y.square().mean()
+        out[remat] = (loss, torch.autograd.grad(loss, params),
+                      dict(calls))
+    torch.testing.assert_close(out[True][0], out[False][0], rtol=1e-6,
+                               atol=0)
+    for a, b in zip(out[True][1], out[False][1]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    once = out[False][2]
+    assert once["flash"] == 16 and once["gn_conv"] == 44  # the small UNet
+    recomputes = 1 if policy in ("full", "dots") else 0
+    assert out[True][2] == {k: n * (1 + recomputes) for k, n in once.items()}
 
 
 def test_port_imports_no_jax():
@@ -294,7 +332,9 @@ def test_port_imports_no_jax():
         "preprocess/openpose/__init__.py", "preprocess/openpose/model.py",
         "preprocess/openpose/hand.py", "preprocess/openpose/face.py",
         "preprocess/openpose/infer.py", "preprocess/openpose/draw.py",
-        "postprocess/__init__.py", "postprocess/face_fusion.py")} <= names
+        "postprocess/__init__.py", "postprocess/face_fusion.py",
+        "runtime/native.py", "train/checkpoint.py", "train/trackers.py",
+        "core/profiling.py", "apps/train_cli.py")} <= names
     for path in files:
         tree = ast.parse(path.read_text(), str(path))
         in_functions = {id(n) for f in ast.walk(tree)
