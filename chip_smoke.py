@@ -91,7 +91,21 @@ Phases, each printing one line:
      (2 persons x 2 garments) with a written ControlNet: 4 collages, K1-K4
      launches as derived, K7 once per person;
  17. serve_fusion: the server with `--post_process face_fusion:<facenet>`,
-     one request with a face and one without, against direct calls.
+     one request with a face and one without, against direct calls;
+ 18. parse_train: `apps.parsing_cli train` at its defaults (SCHP ResNet-101
+     at full width, 18 classes, 473x473) on 8 synthetic 600x460 JPEG /
+     label pairs, 6 steps at batch 1 and 4 at batch 4: s/step, peak
+     memory, the losses, the running statistics, K7's 119 launches a step;
+     and 2 steps at 64x64 card vs CPU (TF32 off);
+ 19. parse_eval: `apps.parsing_cli eval --flip --scales 0.75,1.0,1.25` on
+     the fine-tuned params.npz: mIoU, s/image, the PNGs, K7's launches
+     exactly 714 per image;
+ 20. eval: `eval.cli cami-u` over the dress phase's garments and results,
+     `eval.cli cami-s-grid` (2 prompts x 2 poses x 2 faces x 2 garments)
+     with a random full-width CLIP ViT-B/32, the written OpenPose and a
+     fixed face embedder; CLIP embed and OpenPose times.
+(abn_train_check runs right after check: the training-mode ABN forward and
+backward on the card at SCHP's shapes against the CPU in float64.)
 Then the per-kernel JSON line, the `nvidia-smi` line, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 Without a card, or without the rest of the repository, it exits non-zero.
@@ -2697,6 +2711,401 @@ def phase_serve_fusion(paths, facenet):
     worker.pipe = None
 
 
+# ---------------------------------------------------------------------------
+# The SCHP fine-tune, its eval and the try-on metrics
+# ---------------------------------------------------------------------------
+
+# the training-mode ABN at SCHP's shapes (layer1 at 473, layer3/4's widths)
+ABN_TRAIN_SHAPES = [(1, 119, 119, 256), (1, 60, 60, 512), (1, 60, 60, 2048)]
+# card fp32 against the CPU's float64: y and the moments within 1e-5, the
+# gradients (fp32 sums over up to 14161 rows) within 1e-4, of max |ref|
+ABN_TRAIN_RTOL = {"y": 1e-5, "mean": 1e-5, "var": 1e-5, "dx": 1e-4,
+                  "dw": 1e-4, "db": 1e-4}
+PARSE_PAIRS = 8
+# SCHP fine-tune steps card vs CPU (TF32 off), each from the same state:
+# the loss (relative), all parameter gradients in L2 and each leaf's in L2
+# (relative), each running statistic (relative to its max). Rounding alone
+# moves a gradient of this train-mode net by a few % (two XLA compiles of
+# JAX's own trunk differ by 1.8 % in L2: tests/test_torch_parsing_steps.py);
+# measured on an H100 80GB HBM3, 700 W (steps 0, 1): loss 0, 3.5e-6; all 2.0e-2, 5.4e-2;
+# the worst leaf 2.8e-2, 7.2e-2; statistics 1.2e-4, 2.1e-4
+PARSE_TRAIN_TOL = dict(loss=1e-5, l2=0.1, leaf_l2=0.15, stats=5e-4)
+K7_PER_FORWARD = 119
+
+
+def phase_abn_train_check(counter):
+    """`abn_train_stats` forward and backward on the card, fp32, at
+    ABN_TRAIN_SHAPES for each activation, against the CPU plain path in
+    float64 on the same inputs; one K7 launch per forward."""
+    import torch
+
+    from imagdressing_tpu_torch.kernels import fused_bn_act as fba
+
+    errs, ok = {}, True
+    counter.reset()
+    for seed, shape in enumerate(ABN_TRAIN_SHAPES):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        c = shape[-1]
+        x = torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5
+        w = 1 + 0.3 * torch.randn(c, generator=gen, device="cuda")
+        b = 0.3 * torch.randn(c, generator=gen, device="cuda")
+        g = torch.randn(shape, generator=gen, device="cuda")
+        for act in fba.ACTIVATIONS:
+            sides = {}
+            for dev, dt in (("cuda", torch.float32), ("cpu", torch.float64)):
+                leaves = [t.detach().to(dev, dt).requires_grad_()
+                          for t in (x, w, b)]
+                y, mean, var = fba.abn_train_stats(*leaves, activation=act)
+                (y * g.to(dev, dt)).sum().backward()
+                sides[dev] = dict(zip(ABN_TRAIN_RTOL, (
+                    t.detach().double().cpu() for t in
+                    (y, mean, var, *(v.grad for v in leaves)))))
+            row = {}
+            for k, rtol in ABN_TRAIN_RTOL.items():
+                got, want = sides["cuda"][k], sides["cpu"][k]
+                err = (got - want).abs().max().item()
+                tol = rtol * want.abs().max().item()
+                row[k] = dict(max_abs_err=err, tol=tol)
+                ok &= math.isfinite(err) and err <= tol
+            errs["x".join(map(str, shape)) + act] = row
+    launches = counter.count
+    ok &= launches == len(ABN_TRAIN_SHAPES) * len(fba.ACTIVATIONS)
+    emit("abn_train_check", dtype="fp32 card vs float64 CPU",
+         rtol=ABN_TRAIN_RTOL, cases=errs, bn_act_launches=launches, ok=ok)
+    if not ok:
+        raise SmokeFailure(f"abn_train: {errs}, K7 launches {launches}")
+
+
+def write_parsing_data(root):
+    """PARSE_PAIRS synthetic 600x460 JPEG person photos and 18-class label PNGs (a
+    band of each label, the head's rows ignored as 255) -> (image_dir,
+    label_dir)."""
+    import numpy as np
+
+    from imagdressing_tpu_torch.apps import image_utils as iu
+    from imagdressing_tpu_torch.tools.profile_parse import person_photo
+
+    image_dir, label_dir = (os.path.join(root, d) for d in (
+        "parse_images", "parse_labels"))
+    os.makedirs(image_dir)
+    os.makedirs(label_dir)
+    for i in range(PARSE_PAIRS):
+        photo = person_photo(600, 460, 70 + i)
+        iu.write_image(os.path.join(image_dir, f"p{i}.jpg"), photo)
+        gray = photo.astype(np.int64).sum(-1)
+        label = ((gray * 18) // (3 * 256 + 1) + i) % 18
+        label[:40] = 255
+        iu.write_image(os.path.join(label_dir, f"p{i}.png"),
+                       label.astype(np.uint8))
+    return image_dir, label_dir
+
+
+def _parse_step_compare():
+    """Two SCHP fine-tune steps at 64x64 (batch 2, 6 classes; bn3.weight
+    0.25 in every bottleneck, as the CPU test) on the CPU and, from the
+    CPU's state before each step (parameters, statistics, momentum), on the
+    card, TF32 off. Per step, card vs CPU: the loss, every parameter's
+    gradient (each leaf and all leaves in L2), each running statistic
+    relative to its max |value|."""
+    import numpy as np
+    import torch
+
+    from imagdressing_tpu_torch.preprocess.parsing import model as schp
+    from imagdressing_tpu_torch.train import parsing_train as pt
+
+    cpu = schp.init(0, 6, "cpu").requires_grad_(True)
+    for name, m in cpu.named_modules():
+        if name.endswith("bn3"):
+            m.weight.data.fill_(0.25)
+    gpu = copy.deepcopy(cpu).cuda()
+    cfg = pt.ParsingTrainConfig(num_classes=6, learning_rate=2e-2,
+                                total_steps=100)
+    rng = np.random.default_rng(0)
+    label = rng.integers(0, 6, (2, 64, 64))
+    batch = {"image": torch.from_numpy(rng.standard_normal(
+                 (2, 64, 64, 3)).astype(np.float32)),
+             "label": torch.from_numpy(label),
+             "edge": torch.from_numpy(pt.edges_from_labels(label))}
+    opt_c, opt_g = pt.make_optimizer(cfg, cpu), pt.make_optimizer(cfg, gpu)
+    step_c = pt.make_parsing_train_step(cfg, cpu, opt_c)
+    step_g = pt.make_parsing_train_step(cfg, gpu, opt_g)
+    batch_g = {k: v.cuda() for k, v in batch.items()}
+
+    rows = []
+    for i in range(2):
+        gpu.load_state_dict(cpu.state_dict())
+        for pc, pg in zip(cpu.parameters(), gpu.parameters()):
+            m = opt_c.state[pc].get("momentum_buffer")
+            if m is not None:
+                opt_g.state[pg]["momentum_buffer"] = m.clone().cuda()
+        loss_g = float(step_g(i, batch_g)["loss"])
+        loss_c = float(step_c(i, batch)["loss"])
+        sq_err = sq_ref = leaf = 0.0
+        for pc, pg in zip(cpu.parameters(), gpu.parameters()):
+            want = pc.grad.double()
+            err = pg.grad.double().cpu() - want
+            leaf = max(leaf, (err.norm() / want.norm()).item())
+            sq_err += (err * err).sum().item()
+            sq_ref += (want * want).sum().item()
+        stats = max(((bg.cpu() - bc).abs().max() / bc.abs().max()).item()
+                    for (k, bc), bg in zip(cpu.named_buffers(),
+                                           gpu.buffers()) if "running" in k)
+        rows.append(dict(loss_cpu=loss_c, loss_card=loss_g,
+                         loss_rel=abs(loss_g - loss_c) / abs(loss_c),
+                         grad_l2_rel=(sq_err / sq_ref) ** 0.5,
+                         worst_leaf_l2_rel=leaf, stats_rel=stats))
+    tol = PARSE_TRAIN_TOL
+    ok = all(r["loss_rel"] <= tol["loss"] and r["grad_l2_rel"] <= tol["l2"]
+             and r["worst_leaf_l2_rel"] <= tol["leaf_l2"]
+             and r["stats_rel"] <= tol["stats"] for r in rows)
+    return rows, ok
+
+
+def phase_parse_train(root, counters):
+    """`apps.parsing_cli.main(["train", ...])` at its defaults (ResNet-101
+    AugmentCE2P at full width and depth, 18 classes, 473x473, fp32 with
+    cuDNN's TF32 convs) on PARSE_PAIRS written pairs: 6 steps at batch 1,
+    then 4 steps at --batch_size 4 restored from the first run's
+    params.npz. Per run: the loss of each step (finite), s/step (the
+    median after the first), peak memory, the launches of every kernel
+    (K7: 119 a step, the train-mode ABNs' apply; no other kernel), the
+    running statistics moved from where the run started (a fresh net's
+    zeros, the restored file's); then 2 steps at 64x64 card vs CPU (TF32
+    off). -> the batch-4 run's params.npz and the data dirs."""
+    import numpy as np
+    import torch
+
+    from imagdressing_tpu_torch.apps import parsing_cli
+
+    image_dir, label_dir = write_parsing_data(root)
+    runs, params, ok = {}, None, True
+    for batch, steps in ((1, 6), (4, 4)):
+        out = os.path.join(root, f"parse_run_b{batch}")
+        argv = ["train", "--image_dir", image_dir, "--label_dir", label_dir,
+                "--out_dir", out, "--steps", str(steps), "--batch_size",
+                str(batch), "--log_every", str(steps)]
+        if params:
+            argv += ["--restore", params]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        res = parsing_cli.main(argv)
+        wall = time.perf_counter() - t0
+        launches = {k: c.count for k, c in counters.items()}
+        want = {k: (K7_PER_FORWARD * steps if k == "bn_act" else 0)
+                for k in counters}
+        start = (np.load(params)["bn1/running_mean"] if params
+                 else np.zeros_like(np.load(res["params"])[
+                     "bn1/running_mean"]))
+        params = res["params"]
+        stats = np.load(params)["bn1/running_mean"]
+        finite = all(math.isfinite(v) for v in res["losses"])
+        moved = bool(np.abs(stats - start).max() > 0)
+        runs[f"b{batch}"] = dict(
+            steps=steps, s_per_step=sorted(res["step_s"][1:])[
+                len(res["step_s"][1:]) // 2], step_s=res["step_s"],
+            wall_s=wall, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            losses=res["losses"], finite=finite, running_stats_moved=moved,
+            launches=launches, expected_launches=want,
+            launches_per_step={k: v / steps for k, v in launches.items()})
+        ok &= finite and moved and launches == want
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        rows, same = _parse_step_compare()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    emit("parse_train", model="SCHP ResNet-101 AugmentCE2P, 18 classes",
+         input="473x473 fp32, TF32 convs", pairs=PARSE_PAIRS,
+         photo="600x460", runs=runs, card_vs_cpu_64=rows,
+         card_vs_cpu_tol=PARSE_TRAIN_TOL, ok=ok and same)
+    if not (ok and same):
+        raise SmokeFailure(f"parse_train: {runs}, card vs CPU {rows}")
+    return params, image_dir, label_dir
+
+
+def phase_parse_eval(root, params, image_dir, label_dir, counter):
+    """`apps.parsing_cli.main(["eval", ..., "--flip", "--scales",
+    "0.75,1.0,1.25", "--save_dir", ...])` on the fine-tuned params.npz:
+    the mIoU (in [0, 1]), s/image, the PNGs written, and K7's launches,
+    exactly 714 (6 forwards of 119 ABNs) per image."""
+    from imagdressing_tpu_torch.apps import image_utils as iu
+    from imagdressing_tpu_torch.apps import parsing_cli
+
+    preds = os.path.join(root, "parse_preds")
+    counter.reset()
+    t0 = time.perf_counter()
+    miou = parsing_cli.main(["eval", "--image_dir", image_dir, "--label_dir",
+                             label_dir, "--restore", params, "--flip",
+                             "--scales", "0.75,1.0,1.25", "--save_dir",
+                             preds])
+    wall = time.perf_counter() - t0
+    launches = counter.count
+    saved = sorted(os.listdir(preds))
+    shapes = {iu.read_image(os.path.join(preds, n)).shape for n in saved}
+    want = 6 * K7_PER_FORWARD * PARSE_PAIRS
+    ok = 0.0 <= miou <= 1.0 and launches == want \
+        and len(saved) == PARSE_PAIRS and shapes == {(473, 473, 3)}
+    emit("parse_eval", scales=[0.75, 1.0, 1.25], flip=True,
+         images=PARSE_PAIRS, miou=miou, wall_s=wall,
+         s_per_image=wall / PARSE_PAIRS, pngs=len(saved),
+         bn_act_launches=launches, expected_launches=want, ok=ok)
+    if not ok:
+        raise SmokeFailure(f"parse_eval: mIoU {miou}, K7 {launches} != "
+                           f"{want}, saved {saved}")
+
+
+def fixed_face_embedding(path):
+    """The grid's face embedder (`--face_embedder chip_smoke:
+    fixed_face_embedding`): a fixed unit 512-vector per file name."""
+    import hashlib
+
+    import numpy as np
+
+    seed = int(hashlib.md5(os.path.basename(path).encode()).hexdigest()[:8],
+               16)
+    v = np.random.default_rng(seed).standard_normal(512)
+    return v / np.linalg.norm(v)
+
+
+def _run_cli(main, argv):
+    """-> (what `main(argv)` printed, its return value)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = main(argv)
+    return buf.getvalue(), ret
+
+
+def phase_eval(root, pre):
+    """The try-on metrics through `eval.cli.main`: `cami-u` over the dress
+    phase's 5 garments and their results (each collage's right half as
+    the generated garment crop); `cami-s-grid` over 2 prompts x 2 poses x
+    2 faces x 2 garments of those results, with a random full-width
+    ViT-B/32 written as a transformers CLIPModel state dict, the OpenPose
+    body net of write_preprocess's files and `fixed_face_embedding`, all on
+    the card. Then the CLIP text and image embed ms and an OpenPose call's
+    wall."""
+    import numpy as np
+    import torch
+
+    from imagdressing_tpu_torch.apps import image_utils as iu
+    from imagdressing_tpu_torch.apps.tokenizer import HashTokenizer
+    from imagdressing_tpu_torch.core.config import PRESETS
+    from imagdressing_tpu_torch.eval import cli as eval_cli
+    from imagdressing_tpu_torch.eval.clip_score import ClipScorer
+    from imagdressing_tpu_torch.preprocess.openpose.draw import draw_bodypose
+    from imagdressing_tpu_torch.preprocess.openpose.infer import OpenPose
+    from imagdressing_tpu_torch.tools.profile_parse import person_photo
+    from imagdressing_tpu_torch.tools.write_checkpoints import (
+        clip_scorer_state_dict,
+    )
+
+    width = PRESETS["basic"].width
+    cloths, out = (os.path.join(root, d) for d in ("cloths", "out"))
+    crops = os.path.join(root, "gen_crops")
+    os.makedirs(crops)
+    names = sorted(os.listdir(cloths))
+    results = []
+    for n in names:
+        result = iu.read_image(os.path.join(out, n))[:, width:]
+        iu.write_image(os.path.join(crops, n), result)
+        results.append(result)
+    t0 = time.perf_counter()
+    cami_u_line, _ = _run_cli(eval_cli.main, [
+        "cami-u", "--cloth_path", cloths, "--cloth_mask_path", crops])
+    cami_u_s = (time.perf_counter() - t0) / len(names)
+    cami_u = float(cami_u_line.split(":")[-1])
+
+    grid = {d: os.path.join(root, "grid", d) for d in (
+        "pose", "face", "cloth", "generated", "cloth_mask")}
+    for d in grid.values():
+        os.makedirs(d)
+    rng = np.random.default_rng(0)
+    for j in range(2):
+        kps = rng.uniform((40, 60), (340, 460), (18, 2))
+        iu.write_image(os.path.join(grid["pose"], f"pose{j}.png"),
+                       draw_bodypose(kps, 512, 384))
+        iu.write_image(os.path.join(grid["face"], f"face{j}.png"),
+                       person_photo(256, 256, 80 + j))
+    for c in range(2):
+        iu.write_image(os.path.join(grid["cloth"], names[c]),
+                       iu.read_image(os.path.join(cloths, names[c])))
+        for i in range(2):
+            for j in range(2):
+                for k in range(2):
+                    cell = f"pt_{i}_pose_{j}_face_{k}_{names[c]}"
+                    img = results[(c + 2 * j + k) % len(results)]
+                    for d in ("generated", "cloth_mask"):
+                        iu.write_image(os.path.join(grid[d], cell), img)
+    clip_path = os.path.join(root, "clip-vit-b32.bin")
+    torch.save(clip_scorer_state_dict(0, "cuda"), clip_path)
+    out_json = os.path.join(root, "grid.json")
+    prompts = ["a woman in a red dress", "a man in a blue shirt"]
+    argv = ["cami-s-grid", "--pose_path", grid["pose"], "--face_path",
+            grid["face"], "--cloth_path", grid["cloth"], "--cloth_mask_path",
+            grid["cloth_mask"], "--model_path", grid["generated"],
+            "--clip_model", clip_path, "--openpose_ckpt",
+            pre["IMAGDRESSING_OPENPOSE_CKPT"], "--face_embedder",
+            "chip_smoke:fixed_face_embedding", "--num_faces", "2",
+            "--out_json", out_json, "--device", "cuda"]
+    for p in prompts:
+        argv += ["--prompt", p]
+    t0 = time.perf_counter()
+    grid_line, _ = _run_cli(eval_cli.main, argv)
+    grid_s = time.perf_counter() - t0
+    with open(out_json) as f:
+        result = json.load(f)
+
+    # the scorer's and OpenPose's own times, after a warm call
+    scorer = ClipScorer.from_state_dict(torch.load(clip_path),
+                                        tokenizer=HashTokenizer(),
+                                        device="cuda")
+    ids = scorer.tokenizer(prompts[0])[None]
+    image = results[0][None].astype(np.float32) / 255.0
+
+    def ms(fn, reps=10):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / reps * 1e3
+
+    text_ms = ms(lambda: scorer.text_embed(ids))
+    image_ms = ms(lambda: scorer.image_embed(image))
+    pose = OpenPose.from_torch(pre["IMAGDRESSING_OPENPOSE_CKPT"], "cuda")
+    view = np.ascontiguousarray(results[0][64:576])[:, 64:448]
+    openpose_ms = ms(lambda: pose(view), reps=3)
+    cells = result["cells"]
+    terms = {k: [c[k] for c in cells if k in c] for k in (
+        "cami_us", "pose_term", "face_term", "clip_term")}
+    finite = all(math.isfinite(v) for v in
+                 [cami_u, result["cami_s_score"]]
+                 + [v for t in terms.values() for v in t])
+    ok = finite and result["num_cells"] == 16 and result["num_missing"] == 0 \
+        and all(-1.0001 <= v <= 1.0001 for v in terms["clip_term"])
+    emit("eval", cami_u=cami_u, cami_u_line=cami_u_line.strip(),
+         grid_line=grid_line.strip().splitlines()[-1],
+         cami_s_score=result["cami_s_score"], cells=result["num_cells"],
+         missing=result["num_missing"], terms=terms,
+         why_pose_zero=("random OpenPose weights assemble no person, so the "
+                        "generated render is empty"
+                        if not any(terms["pose_term"]) else None),
+         cami_u_s_per_garment=cami_u_s, grid_wall_s=grid_s,
+         grid_s_per_cell=grid_s / result["num_cells"],
+         clip_text_embed_ms=text_ms, clip_image_embed_ms=image_ms,
+         openpose_call_ms=openpose_ms, ok=ok)
+    if not ok:
+        raise SmokeFailure(f"eval: CAMI-U {cami_u}, grid {result}")
+
+
+
 def main() -> int:
     import torch
 
@@ -2728,6 +3137,7 @@ def main() -> int:
 
     try:
         errs = phase_check()
+        phase_abn_train_check(fba.COUNTER)
         phase_determinism()
         phase_mini()
         phase_mini_presets()
@@ -2763,6 +3173,11 @@ def main() -> int:
             paths["controlnet_path"] = write_controlnet(root)
             phase_dress_person(paths, dict(inference, bn_act=fba.COUNTER))
             phase_serve_fusion(paths, pre["facenet"])
+            all_kernels = dict(training, bn_act=fba.COUNTER)
+            params, image_dir, label_dir = phase_parse_train(root,
+                                                             all_kernels)
+            phase_parse_eval(root, params, image_dir, label_dir, fba.COUNTER)
+            phase_eval(root, pre)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1

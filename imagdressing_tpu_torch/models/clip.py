@@ -1,6 +1,9 @@
 """CLIP text (ViT-L/14) and vision (ViT-H/14) towers in PyTorch (port of
-`imagdressing_tpu/models/clip.py`). Attention here is the plain path
-(`ops.attention.attention`), as in the JAX package: 77 and 257 tokens."""
+`imagdressing_tpu/models/clip.py`), also at the CAMI scorer's ViT-B/32
+(`eval/clip_score.py`). Attention here is the plain path
+(`ops.attention.attention`), as in the JAX package: 77, 257 and 50
+tokens. `vision_pooled_embed` and `clip_preprocess` are the projected image
+embedding and CLIPImageProcessor's resize and normalisation."""
 
 from __future__ import annotations
 
@@ -10,6 +13,7 @@ from torch import nn
 
 from imagdressing_tpu_torch.core.config import CLIPTextConfig, CLIPVisionConfig
 from imagdressing_tpu_torch.ops import attention as attn_ops
+from imagdressing_tpu_torch.ops.resize import jax_resize
 from imagdressing_tpu_torch.ops.nn import (
     Conv2d,
     Embedding,
@@ -149,3 +153,24 @@ class CLIPVision(nn.Module):
             x = lp(x, cfg.num_heads, _act(cfg.hidden_act), cfg.layer_norm_eps,
                    causal=False)
         return x
+
+
+def vision_pooled_embed(vision: CLIPVision, last_hidden: torch.Tensor
+                        ) -> torch.Tensor:
+    """post_layernorm(CLS) @ visual_projection: CLIPVisionModelWith
+    Projection's image_embeds, from the last hidden state (B, S, hidden)
+    -> (B, projection_dim)."""
+    pooled = layer_norm(last_hidden[:, 0], vision.post_layernorm.weight,
+                        vision.post_layernorm.bias,
+                        eps=vision.cfg.layer_norm_eps)
+    return vision.visual_projection(pooled)
+
+
+def clip_preprocess(images01: torch.Tensor, size: int = 224) -> torch.Tensor:
+    """(B, H, W, 3) in [0, 1] -> (B, size, size, 3) CLIP-normalized: JAX's
+    bicubic resize (`ops.resize.jax_resize`, antialiased when shrinking),
+    clipped to [0, 1], CLIPImageProcessor's mean and std."""
+    x = jax_resize(images01, size, size).clamp(0.0, 1.0)
+    mean = torch.tensor(CLIP_IMAGE_MEAN, dtype=x.dtype, device=x.device)
+    std = torch.tensor(CLIP_IMAGE_STD, dtype=x.dtype, device=x.device)
+    return (x - mean) / std

@@ -20,12 +20,24 @@ gather:
     one level apart from it).
   * `cv2_resize_nearest`: OpenCV's `resize(..., INTER_NEAREST)`: source
     index floor(i * in / out) (not JAX's half-pixel nearest).
+  * `cv2_resize_linear`: OpenCV's `resize(..., INTER_LINEAR)` of a float
+    image: half-pixel centres, the fraction from float64 positions, the
+    column taps clamped to the edge.
+  * `cv2_resize_linear_u8`: the same of a uint8 image in OpenCV's
+    fixed-point arithmetic (weights in 1/2048 from float32 fractions, the
+    row pass in integers, the column pass as its SIMD code shifts and
+    rounds), equal to `cv2.resize` bit for bit.
+  * `cv2_resize_area_u8`: OpenCV's `resize(..., INTER_AREA)` of a uint8
+    image when shrinking: each output the mean of the input area it covers
+    (float32 weights, rounded to nearest), or, at an integer factor, the
+    box mean rounded half up.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Union
+import math
+from typing import Tuple, Union
 
 import numpy as np
 import torch
@@ -124,3 +136,104 @@ def cv2_resize_nearest(x: Array, w: int, h: int) -> Array:
     if torch.is_tensor(x):
         rows, cols = (torch.from_numpy(i).to(x.device) for i in (rows, cols))
     return x[rows][:, cols]
+
+
+def _linear_taps(n_in: int, n_out: int, f32: bool, clamp: bool
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """OpenCV's INTER_LINEAR taps of one axis: (i0, i1, fraction of i1).
+    The position (i + 0.5) * in / out - 0.5 in float64, rounded to float32
+    where `f32`; `clamp`: a tap off the edge takes the edge pixel with
+    weight 1 (OpenCV's column taps; its rows keep their fractions and
+    clamp the row index only)."""
+    pos = (np.arange(n_out) + 0.5) * (1.0 / (n_out / n_in)) - 0.5
+    if f32:
+        pos = pos.astype(np.float32)
+    i0 = np.floor(pos).astype(np.int64)
+    frac = pos - i0.astype(pos.dtype)
+    if clamp:
+        frac = np.where((i0 < 0) | (i0 >= n_in - 1), 0.0, frac).astype(
+            frac.dtype)
+    return (np.clip(i0, 0, n_in - 1), np.clip(i0 + 1, 0, n_in - 1), frac)
+
+
+@functools.lru_cache(maxsize=64)
+def cv2_linear_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) float64 weights of OpenCV's float INTER_LINEAR."""
+    i0, i1, frac = _linear_taps(n_in, n_out, f32=False, clamp=True)
+    w = np.zeros((n_out, n_in))
+    rows = np.arange(n_out)
+    np.add.at(w, (rows, i0), 1.0 - frac)
+    np.add.at(w, (rows, i1), frac)
+    return w
+
+
+def cv2_resize_linear(x: torch.Tensor, w: int, h: int) -> torch.Tensor:
+    """float (H, W, C) -> float32 (h, w, C) for size (w, h), as
+    `cv2.resize(x, (w, h), interpolation=cv2.INTER_LINEAR)` of a float32
+    image (within float32 rounding), on the tensor's device."""
+    return _apply(x, cv2_linear_matrix(x.shape[-3], h),
+                  cv2_linear_matrix(x.shape[-2], w), torch.float32)
+
+
+def cv2_resize_linear_u8(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """uint8 (H, W[, C]) -> uint8 (h, w[, C]) for size (w, h), as
+    `cv2.resize(img, (w, h))` (INTER_LINEAR) computes it: weights
+    rint(2048 * float32 fraction), each tap's own; the row pass exact in
+    integers; the column pass ((b0 * (r0 >> 4)) >> 16) + ((b1 * (r1 >> 4))
+    >> 16), then + 2 >> 2 and saturated."""
+    def weights(frac):
+        f = frac.astype(np.float32)
+        return (np.rint(((np.float32(1) - f) * np.float32(2048))).astype(
+            np.int64), np.rint(f * np.float32(2048)).astype(np.int64))
+
+    x0, x1, fx = _linear_taps(img.shape[1], w, f32=True, clamp=True)
+    y0, y1, fy = _linear_taps(img.shape[0], h, f32=True, clamp=False)
+    (a0, a1), (b0, b1) = weights(fx), weights(fy)
+    extra = (1,) * (img.ndim - 2)
+    src = img.astype(np.int64)
+    rows = src[:, x0] * a0.reshape((1, -1) + extra) \
+        + src[:, x1] * a1.reshape((1, -1) + extra)
+    b0, b1 = (b.reshape((-1, 1) + extra) for b in (b0, b1))
+    out = (((b0 * (rows[y0] >> 4)) >> 16) + ((b1 * (rows[y1] >> 4)) >> 16)
+           + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def _area_taps(n_in: int, n_out: int):
+    """OpenCV's `computeResizeAreaTab` for a shrink: (out, in, weight)."""
+    scale = n_in / n_out
+    taps = []
+    for d in range(n_out):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, n_in - f1)
+        s2 = min(math.floor(f2), n_in - 1)
+        s1 = min(math.ceil(f1), s2)
+        if s1 - f1 > 1e-3:
+            taps.append((d, s1 - 1, (s1 - f1) / cell))
+        taps.extend((d, s, 1.0 / cell) for s in range(s1, s2))
+        if f2 - s2 > 1e-3:
+            taps.append((d, s2, min(min(f2 - s2, 1.0), cell) / cell))
+    return taps
+
+
+def cv2_resize_area_u8(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """uint8 (H, W[, C]) -> uint8 (h, w[, C]), h <= H and w <= W, as
+    `cv2.resize(img, (w, h), interpolation=cv2.INTER_AREA)`."""
+    hh, ww = img.shape[:2]
+    if h > hh or w > ww:
+        raise ValueError(f"cv2_resize_area_u8 shrinks only: {hh}x{ww} -> "
+                         f"{h}x{w}")
+    if hh % h == 0 and ww % w == 0:
+        sy, sx = hh // h, ww // w
+        box = img.astype(np.int64).reshape(
+            (h, sy, w, sx) + img.shape[2:]).sum((1, 3))
+        return ((box + sy * sx // 2) // (sy * sx)).astype(np.uint8)
+    src = img.astype(np.float32)
+    cols = np.zeros((hh, w) + img.shape[2:], np.float32)
+    for d, s, a in _area_taps(ww, w):
+        cols[:, d] += src[:, s] * np.float32(a)
+    out = np.zeros((h, w) + img.shape[2:], np.float32)
+    for d, s, b in _area_taps(hh, h):
+        out[d] += cols[s] * np.float32(b)
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)

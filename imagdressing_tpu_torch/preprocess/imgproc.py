@@ -359,6 +359,36 @@ def dilate5(mask: np.ndarray, iterations: int = 1) -> np.ndarray:
                                    iterations=iterations, border_value=0)
 
 
+def dilate3(img: np.ndarray) -> np.ndarray:
+    """`cv2.dilate(img, None)`: the 3x3 maximum, the border adding nothing
+    (OpenCV's default border for dilation is the type's minimum)."""
+    return ndimage.maximum_filter(img, size=3, mode="nearest")
+
+
+def corner_harris(gray: np.ndarray, k: float = 0.04) -> np.ndarray:
+    """`cv2.cornerHarris(gray, blockSize=2, ksize=3, k)` of a float32 gray
+    image, in OpenCV's float32 order: 3x3 Sobel derivatives scaled by
+    1 / (4 * 2) (the scale on the smoothing taps), BORDER_REFLECT_101; the
+    products summed over an unnormalised 2x2 box at anchor (1, 1) (rows
+    and columns i-1 and i, reflected at the top and left); then
+    (a * c - b * b) - k * ((a + c) * (a + c)). Bit-equal to cv2 for
+    integer-valued gray (the derivatives and box sums are exact)."""
+    f32 = np.float32
+    p = np.pad(np.asarray(gray, f32), 1, mode="reflect")
+    t = p[:, 2:] - p[:, :-2]
+    dx = f32(0.25) * t[1:-1] + f32(0.125) * (t[:-2] + t[2:])
+    t = f32(0.25) * p[:, 1:-1] + f32(0.125) * (p[:, :-2] + p[:, 2:])
+    dy = t[2:] - t[:-2]
+
+    def box(v):
+        q = np.pad(v, ((1, 0), (1, 0)), mode="reflect")
+        return q[:-1, :-1] + q[:-1, 1:] + q[1:, :-1] + q[1:, 1:]
+
+    a, b, c = box(dx * dx), box(dx * dy), box(dy * dy)
+    s = a + c
+    return ((a * c - b * b) - f32(k) * (s * s)).astype(f32)
+
+
 def erode_box(img: np.ndarray, k: int) -> np.ndarray:
     """`cv2.erode(img, np.ones((k, k)))` of a float image: the k x k
     minimum, anchored at k // 2, the border adding nothing."""

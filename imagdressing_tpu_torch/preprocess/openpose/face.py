@@ -45,7 +45,7 @@ class Face:
     def from_torch(cls, path: str, device: Device = "cuda") -> "Face":
         """`facenet.pth` (tensors only)."""
         sd = torch.load(path, map_location="cpu", weights_only=True)
-        return cls(FaceNet.from_state_dict(sd), device)
+        return cls(FaceNet.from_state_dict(sd, device), device)
 
     @torch.no_grad()
     def heatmaps(self, face_bgr: np.ndarray) -> np.ndarray:

@@ -120,7 +120,7 @@ class Hand:
     def from_torch(cls, path: str, device: Device = "cuda") -> "Hand":
         """`hand_pose_model.pth` (tensors only)."""
         sd = torch.load(path, map_location="cpu", weights_only=True)
-        return cls(HandPoseNet.from_state_dict(sd), device)
+        return cls(HandPoseNet.from_state_dict(sd, device), device)
 
     @torch.no_grad()
     def heatmaps(self, crop: torch.Tensor, side: int, size: int

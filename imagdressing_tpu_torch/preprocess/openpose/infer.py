@@ -185,7 +185,7 @@ class OpenPose:
     def from_torch(cls, path: str, device: Device = "cuda") -> "OpenPose":
         """`body_pose_model.pth` (tensors only; bare or prefixed keys)."""
         sd = torch.load(path, map_location="cpu", weights_only=True)
-        return cls(BodyPoseNet.from_state_dict(sd), device)
+        return cls(BodyPoseNet.from_state_dict(sd, device), device)
 
     @classmethod
     def get_default(cls, device: Device = "cuda") -> "OpenPose":

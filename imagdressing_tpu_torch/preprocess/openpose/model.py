@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from imagdressing_tpu_torch.ops.nn import Conv2d
+from imagdressing_tpu_torch.pipelines.dressing import resolve_device
 
 Device = Union[str, torch.device]
 Layer = Tuple[str, int, int, int]  # (name, in, out, kernel); "pool" = 2x2
@@ -93,10 +94,12 @@ class CPMNet(nn.Module):
         return x
 
     @classmethod
-    def init_random(cls, seed: int, device: Device = "cpu") -> "CPMNet":
+    def init_random(cls, seed: int, device: Device = "cuda") -> "CPMNet":
         """Every conv with `nn.param_init_conv`'s distribution (weight and
         bias uniform in +-1/sqrt(fan_in)), drawn from one torch.Generator
-        on `device` in layer order: other numbers than the JAX init."""
+        on `device` in layer order: other numbers than the JAX init.
+        Raises for CUDA on a host without a card."""
+        device = resolve_device(device)
         with torch.device(device):
             net = cls()
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -107,7 +110,7 @@ class CPMNet(nn.Module):
 
     @classmethod
     def from_state_dict(cls, sd: Mapping[str, object],
-                        device: Device = "cpu") -> "CPMNet":
+                        device: Device = "cuda") -> "CPMNet":
         """A reference checkpoint's state dict (OIHW tensors or arrays)
         -> the net: each key's layer is `key.split(".")[-2]`, as the JAX
         `convert_torch` reads it, so `model0.conv1_1.weight` and
@@ -120,7 +123,7 @@ class CPMNet(nn.Module):
             t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
                 np.array(v))
             state[f"{parts[-2]}.{parts[-1]}"] = t.float()
-        with torch.device(device):
+        with torch.device(resolve_device(device)):
             net = cls()
         net.load_state_dict(state)
         return net.eval().requires_grad_(False)

@@ -355,7 +355,8 @@ class Parsing:
         etc.; tensors only)."""
         def load(path, n):
             sd = torch.load(path, map_location="cpu", weights_only=True)
-            return schp.load_schp_state_dict(sd.get("state_dict", sd), n)
+            return schp.load_schp_state_dict(sd.get("state_dict", sd), n,
+                                             device)
 
         return cls(load(atr_path, schp.NUM_CLASSES_ATR),
                    load(lip_path, schp.NUM_CLASSES_LIP), device)
@@ -372,9 +373,9 @@ class Parsing:
 
         return cls(
             schp.load_schp_state_dict(read_onnx_initializers(atr_path),
-                                      schp.NUM_CLASSES_ATR),
+                                      schp.NUM_CLASSES_ATR, device),
             schp.load_schp_state_dict(read_onnx_initializers(lip_path),
-                                      schp.NUM_CLASSES_LIP),
+                                      schp.NUM_CLASSES_LIP, device),
             device)
 
     @classmethod

@@ -9,9 +9,14 @@ Port of `imagdressing_tpu/preprocess/parsing/model.py` (`apply`, `init`,
   PSP(2048->512, sizes 1/2/3/6) -> decoder(512 + layer1) -> seg logits
   edge branch over layer1/2/3; fusion(cat(parsing_fea 256, edge_fea 768))
 
-Every norm is an InPlaceABN in inference form (activation "none" inside the
-residual blocks, leaky_relu 0.01 elsewhere), run by K7
-(`kernels/fused_bn_act.abn_inference`): 119 launches per forward. The convs
+Every norm is an InPlaceABN (activation "none" inside the residual blocks,
+leaky_relu 0.01 elsewhere). In inference form it is run by K7
+(`kernels/fused_bn_act.abn_inference`): 119 launches per forward. Passing a
+`BNTrainCtx` to `SCHP.forward` selects the train mode of the fine-tune
+(`_abn` with `BNTrainCtx` in the JAX package): batch statistics through
+`abn_train_stats` (one K7 launch each for the apply), synced over the
+context's process group, each ABN's (module, mean, var) collected for the
+running-statistics EMA. The convs
 are cuDNN through `ops.nn.conv2d` (XLA convs outside any Pallas kernel in
 the JAX package). Weights are OIHW in channels_last memory, so each conv
 writes a dense NHWC tensor and K7 reads it without a copy.
@@ -25,25 +30,41 @@ initializers) onto the module.
 
 from __future__ import annotations
 
+import dataclasses
 import re
-from typing import Dict, Mapping, Optional, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from imagdressing_tpu_torch.kernels.fused_bn_act import abn_inference
+from imagdressing_tpu_torch.kernels.fused_bn_act import (
+    abn_inference,
+    abn_train_stats,
+)
 from imagdressing_tpu_torch.ops.nn import Conv2d
+from imagdressing_tpu_torch.pipelines.dressing import resolve_device
 
 LAYERS = (3, 4, 23, 3)
 NUM_CLASSES_ATR = 18
 NUM_CLASSES_LIP = 20
 
 
+@dataclasses.dataclass
+class BNTrainCtx:
+    """Train-mode batch norm for one forward: batch statistics (averaged
+    over `group`, a torch.distributed process group, where given:
+    InPlaceABNSync) in place of the running ones; each ABN appends
+    (module, mean, var) to `stats`."""
+
+    group: object = None
+    stats: List = dataclasses.field(default_factory=list)
+
+
 class ABN(nn.Module):
-    """InPlaceABN in inference form: affine parameters and running
-    statistics, folded and applied by K7."""
+    """InPlaceABN: affine parameters and running statistics, folded and
+    applied by K7; with a `BNTrainCtx`, batch statistics instead."""
 
     def __init__(self, c: int, activation: str):
         super().__init__()
@@ -53,9 +74,17 @@ class ABN(nn.Module):
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return abn_inference(x, self.weight, self.bias, self.running_mean,
-                             self.running_var, activation=self.activation)
+    def forward(self, x: torch.Tensor,
+                ctx: Optional[BNTrainCtx] = None) -> torch.Tensor:
+        if ctx is None:
+            return abn_inference(x, self.weight, self.bias,
+                                 self.running_mean, self.running_var,
+                                 activation=self.activation)
+        y, mean, var = abn_train_stats(x, self.weight, self.bias,
+                                       activation=self.activation,
+                                       group=ctx.group)
+        ctx.stats.append((self, mean, var))
+        return y
 
 
 def _conv(cin: int, cout: int, k: int, *, stride: int = 1, padding: int = 0,
@@ -73,8 +102,9 @@ class ConvABN(nn.Module):
         self.conv = _conv(cin, cout, k, stride=stride, padding=padding)
         self.bn = ABN(cout, activation)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.bn(self.conv(x))
+    def forward(self, x: torch.Tensor,
+                ctx: Optional[BNTrainCtx] = None) -> torch.Tensor:
+        return self.bn(self.conv(x), ctx)
 
 
 class Bottleneck(nn.Module):
@@ -91,13 +121,20 @@ class Bottleneck(nn.Module):
         self.downsample = (ConvABN(inplanes, planes * 4, stride=stride,
                                    activation="none") if downsample else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu_(self.bn1(self.conv1(x)))
-        out = F.relu_(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
+    def forward(self, x: torch.Tensor,
+                ctx: Optional[BNTrainCtx] = None) -> torch.Tensor:
+        out = _relu(self.bn1(self.conv1(x), ctx), ctx)
+        out = _relu(self.bn2(self.conv2(out), ctx), ctx)
+        out = self.bn3(self.conv3(out), ctx)
         if self.downsample is not None:
-            x = self.downsample(x)
-        return F.relu_(out.add_(x))
+            x = self.downsample(x, ctx)
+        return _relu(out + x if ctx is not None else out.add_(x), ctx)
+
+
+def _relu(x: torch.Tensor, ctx: Optional[BNTrainCtx]) -> torch.Tensor:
+    """In place for inference; out of place in train mode, where autograd
+    keeps the ABN's output for its backward."""
+    return F.relu_(x) if ctx is None else F.relu(x)
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -123,15 +160,16 @@ class PSP(nn.Module):
         self.stages = nn.ModuleList(ConvABN(2048, 512) for _ in range(4))
         self.bottleneck = ConvABN(2048 + 4 * 512, 512, 3, padding=1)
 
-    def forward(self, x5: torch.Tensor) -> torch.Tensor:
+    def forward(self, x5: torch.Tensor,
+                ctx: Optional[BNTrainCtx] = None) -> torch.Tensor:
         h, w = x5.shape[1:3]
         priors = []
         for stage, size in zip(self.stages, (1, 2, 3, 6)):
             # torch's floor/ceil bins are the JAX `_adaptive_avg_pool`'s
             pooled = _nhwc(F.adaptive_avg_pool2d(_nchw(x5), size))
-            priors.append(resize_align_corners(stage(pooled), h, w))
+            priors.append(resize_align_corners(stage(pooled, ctx), h, w))
         priors.append(x5)
-        return self.bottleneck(torch.cat(priors, dim=-1))
+        return self.bottleneck(torch.cat(priors, dim=-1), ctx)
 
 
 class Edge(nn.Module):
@@ -143,9 +181,11 @@ class Edge(nn.Module):
         self.conv4 = _conv(256, 2, 3, padding=1, bias=True)
         self.conv5 = _conv(6, 2, 1, bias=True)
 
-    def forward(self, x2, x3, x4) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x2, x3, x4, ctx: Optional[BNTrainCtx] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         lh, lw = x2.shape[1:3]
-        e1f, e2f, e3f = self.conv1(x2), self.conv2(x3), self.conv3(x4)
+        e1f, e2f, e3f = (self.conv1(x2, ctx), self.conv2(x3, ctx),
+                         self.conv3(x4, ctx))
         e1, e2, e3 = self.conv4(e1f), self.conv4(e2f), self.conv4(e3f)
         e2f, e3f = (resize_align_corners(t, lh, lw) for t in (e2f, e3f))
         e2, e3 = (resize_align_corners(t, lh, lw) for t in (e2, e3))
@@ -161,11 +201,12 @@ class Decoder(nn.Module):
         self.conv3a = ConvABN(304, 256)
         self.conv3b = ConvABN(256, 256)
 
-    def forward(self, ctx: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    def forward(self, context: torch.Tensor, x2: torch.Tensor,
+                ctx: Optional[BNTrainCtx] = None) -> torch.Tensor:
         lh, lw = x2.shape[1:3]
-        xt = resize_align_corners(self.conv1(ctx), lh, lw)
-        xd = torch.cat([xt, self.conv2(x2)], dim=-1)
-        return self.conv3b(self.conv3a(xd))
+        xt = resize_align_corners(self.conv1(context, ctx), lh, lw)
+        xd = torch.cat([xt, self.conv2(x2, ctx)], dim=-1)
+        return self.conv3b(self.conv3a(xd, ctx), ctx)
 
 
 class Fusion(nn.Module):
@@ -174,14 +215,16 @@ class Fusion(nn.Module):
         self.conv1 = ConvABN(256 + 768, 256)
         self.conv2 = _conv(256, num_classes, 1, bias=True)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv2(self.conv1(x))
+    def forward(self, x: torch.Tensor,
+                ctx: Optional[BNTrainCtx] = None) -> torch.Tensor:
+        return self.conv2(self.conv1(x, ctx))
 
 
 class SCHP(nn.Module):
     """image (B, H, W, 3) normalized -> (fusion_logits (B, H/4, W/4,
     num_classes), edge_logits (B, H/4, W/4, 2)): `schp.apply` in inference
-    mode. The ONNX wrapper of the reference consumes the fusion logits."""
+    mode, or in the fine-tune's train mode with a `BNTrainCtx`. The ONNX
+    wrapper of the reference consumes the fusion logits."""
 
     def __init__(self, num_classes: int = NUM_CLASSES_ATR):
         super().__init__()
@@ -211,32 +254,36 @@ class SCHP(nn.Module):
     def num_classes(self) -> int:
         return self.fushion.conv2.weight.shape[0]
 
-    def forward(self, image: torch.Tensor
+    def forward(self, image: torch.Tensor,
+                bn_ctx: Optional[BNTrainCtx] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = F.relu_(self.bn1(self.conv1(image)))
-        x = F.relu_(self.bn2(self.conv2(x)))
-        x = F.relu_(self.bn3(self.conv3(x)))
+        ctx = bn_ctx
+        x = _relu(self.bn1(self.conv1(image), ctx), ctx)
+        x = _relu(self.bn2(self.conv2(x), ctx), ctx)
+        x = _relu(self.bn3(self.conv3(x), ctx), ctx)
         # maxpool 3x3 s2 p1; torch pads with -inf as the JAX reduce_window
         x = _nhwc(F.max_pool2d(_nchw(x), 3, stride=2, padding=1))
         feats = []
         for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
             for block in layer:
-                x = block(x)
+                x = block(x, ctx)
             feats.append(x)
         x2, x3, x4, x5 = feats
-        ctx = self.context_encoding(x5)
-        xd = self.decoder(ctx, x2)
-        edge_logits, edge_fea = self.edge(x2, x3, x4)
-        fusion_logits = self.fushion(torch.cat([xd, edge_fea], dim=-1))
+        context = self.context_encoding(x5, ctx)
+        xd = self.decoder(context, x2, ctx)
+        edge_logits, edge_fea = self.edge(x2, x3, x4, ctx)
+        fusion_logits = self.fushion(torch.cat([xd, edge_fea], dim=-1), ctx)
         return fusion_logits, edge_logits
 
 
 def init(seed: int, num_classes: int = NUM_CLASSES_ATR,
-         device: Union[str, torch.device] = "cpu") -> SCHP:
+         device: Union[str, torch.device] = "cuda") -> SCHP:
     """Random SCHP with the JAX `init`'s shapes and distribution: convs
     N(0, 0.05), conv biases 0, BN identity (weight 1, bias 0, mean 0,
     var 1). Drawn from a torch.Generator on `device`: one seed gives other
-    numbers on the CPU and on a card, and other numbers than the JAX init."""
+    numbers on the CPU and on a card, and other numbers than the JAX init.
+    Raises for CUDA on a host without a card."""
+    device = resolve_device(device)
     with torch.device(device):
         net = SCHP(num_classes)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -285,7 +332,7 @@ def reference_name(key: str) -> str:
 
 def load_schp_state_dict(sd: Mapping[str, object],
                          num_classes: int = NUM_CLASSES_ATR,
-                         device: Union[str, torch.device] = "cpu") -> SCHP:
+                         device: Union[str, torch.device] = "cuda") -> SCHP:
     """An SCHP checkpoint's state dict (torch tensors or numpy arrays,
     `module.` prefixes allowed, extra keys ignored) -> SCHP, the
     counterpart of the JAX `convert_torch`. The checkpoint's OIHW conv
@@ -296,7 +343,7 @@ def load_schp_state_dict(sd: Mapping[str, object],
     if got != num_classes:
         raise ValueError(f"checkpoint produces {got} classes, caller "
                          f"expects {num_classes}")
-    with torch.device(device):
+    with torch.device(resolve_device(device)):
         net = SCHP(num_classes)
     state: Dict[str, torch.Tensor] = {}
     for key in net.state_dict():

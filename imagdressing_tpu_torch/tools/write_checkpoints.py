@@ -28,6 +28,10 @@ person-photo path and the face fusion, at full width, random:
   ROOT/preprocess/exp-schp-atr.pth       SCHP ATR and LIP, {"state_dict":
   ROOT/preprocess/exp-schp-lip.pth       {"module." + reference name}}
 
+`clip_scorer_state_dict` draws the CAMI-S scorer, a random ViT-B/32, as a
+transformers `CLIPModel` state dict (`torch.save` it for `eval.cli
+cami-s-grid --clip_model`).
+
 Every tensor keeps the stack's dtype, so a bf16 stack writes bf16 files.
 Each model goes through `convert.tree_from_module` and the inverse
 converters of `convert/export_torch.py`, so loading the files back gives
@@ -180,6 +184,37 @@ def write_preprocess_checkpoints(root: str, seed: int = 0,
             for key_, v in sd.items()}}, path)
         paths[key] = path
     return paths
+
+
+def clip_scorer_state_dict(seed: int = 0, device="cuda", text_cfg=None,
+                           vision_cfg=None) -> Dict[str, torch.Tensor]:
+    """A random CLIP model (default: the CAMI-S scorer's ViT-B/32,
+    `eval.clip_score.VIT_B32_*`) as a transformers `CLIPModel` state dict
+    on the CPU: text and vision towers by the port's init drawn on
+    `device` from `seed`, through `export_clip_text` / `export_clip_vision`,
+    and a text projection N(0, 0.02) of (proj, hidden)."""
+    from imagdressing_tpu_torch.eval.clip_score import (
+        VIT_B32_TEXT,
+        VIT_B32_VISION,
+    )
+    from imagdressing_tpu_torch.models.clip import CLIPText, CLIPVision
+    from imagdressing_tpu_torch.ops.nn import init_module
+    from imagdressing_tpu_torch.pipelines.dressing import resolve_device
+
+    text_cfg = text_cfg or VIT_B32_TEXT
+    vision_cfg = vision_cfg or VIT_B32_VISION
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.device(dev):
+        text, vision = CLIPText(text_cfg), CLIPVision(vision_cfg)
+        proj = torch.randn(vision_cfg.projection_dim, text_cfg.hidden_size,
+                           generator=gen) * 0.02
+    init_module(text, gen)
+    init_module(vision, gen)
+    sd = {**ex.export_clip_text(tree_from_module(text)),
+          **ex.export_clip_vision(tree_from_module(vision)),
+          "text_projection.weight": proj}
+    return {k: v.cpu() for k, v in ex.torch_state_dict(sd).items()}
 
 
 def main(argv=None):

@@ -829,7 +829,7 @@ def test_face_fusion_post_process_from_a_written_facenet(tmp_path):
 
     path = str(tmp_path / "facenet.pth")
     torch.save({f"model.{k}": v.contiguous() for k, v in
-                FaceNet.init_random(0).state_dict().items()}, path)
+                FaceNet.init_random(0, "cpu").state_dict().items()}, path)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             serve.load_post_process(f"face_fusion:{path}")
@@ -876,15 +876,15 @@ def test_write_checkpoints_preprocess_round_trip(tmp_path, capsys):
             assert torch.equal(have[k], v), k
 
     same(OpenPose.from_torch(env["IMAGDRESSING_OPENPOSE_CKPT"], "cpu").net,
-         BodyPoseNet.init_random(3).state_dict())
+         BodyPoseNet.init_random(3, "cpu").state_dict())
     same(Hand.from_torch(hand_path, "cpu").net,
-         HandPoseNet.init_random(4).state_dict())
+         HandPoseNet.init_random(4, "cpu").state_dict())
     same(Face.from_torch(facenet[0], "cpu").net,
-         FaceNet.init_random(5).state_dict())
+         FaceNet.init_random(5, "cpu").state_dict())
     parsing = Parsing.from_torch(env["IMAGDRESSING_ATR_CKPT"],
                                  env["IMAGDRESSING_LIP_CKPT"], "cpu")
-    same(parsing.atr, schp.init(6, schp.NUM_CLASSES_ATR).state_dict())
-    same(parsing.lip, schp.init(7, schp.NUM_CLASSES_LIP).state_dict())
+    same(parsing.atr, schp.init(6, schp.NUM_CLASSES_ATR, "cpu").state_dict())
+    same(parsing.lip, schp.init(7, schp.NUM_CLASSES_LIP, "cpu").state_dict())
 
 
 # ---------------------------------------------------------------------------

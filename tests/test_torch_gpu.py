@@ -454,6 +454,58 @@ def test_bn_act_refuses_a_non_contiguous_input(cuda):
         fba.abn_inference(x.transpose(1, 2), p, p, p, p)
 
 
+@pytest.mark.parametrize("act", ["leaky_relu", "elu", "none"])
+def test_abn_train_matches_the_cpu_in_float64(cuda, act):
+    """The training-mode ABN on the card (fp32 moments, one K7 launch for
+    the apply, the inverse-recompute backward) against the CPU plain path
+    in float64 on the same inputs, (2, 30, 30, 256): y and the moments
+    within 1e-5, dx, dw, db within 1e-4 * max of the float64 values (fp32
+    sums over 1800 rows)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    shape, c = (2, 30, 30, 256), 256
+    x = _randn(gen, shape, torch.float32, 2.0) + 0.5
+    w = 1 + _randn(gen, (c,), torch.float32, 0.3)
+    b = _randn(gen, (c,), torch.float32, 0.3)
+    g = _randn(gen, shape, torch.float32)
+    sides = {}
+    for dev, dt in (("cuda", torch.float32), ("cpu", torch.float64)):
+        leaves = [t.detach().to(dev, dt).requires_grad_() for t in (x, w, b)]
+        n0 = fba.COUNTER.count
+        y, mean, var = fba.abn_train_stats(*leaves, activation=act)
+        launched = fba.COUNTER.count - n0
+        (y * g.to(dev, dt)).sum().backward()
+        sides[dev] = [t.detach().double().cpu() for t in
+                      (y, mean, var, *(v.grad for v in leaves))]
+        if dev == "cuda":
+            assert launched == 1
+    for i, (got, want) in enumerate(zip(sides["cuda"], sides["cpu"])):
+        rtol = 1e-5 if i < 3 else 1e-4
+        assert (got - want).abs().max() <= rtol * want.abs().max()
+
+
+def test_parsing_train_step_runs_through_k7(cuda):
+    """Two SCHP fine-tune steps at full width and depth on the card (64x64,
+    batch 2, 6 classes): finite losses, 119 K7 launches a step (one per
+    ABN, the train-mode apply), moved running statistics."""
+    from imagdressing_tpu_torch.preprocess.parsing import model as schp
+    from imagdressing_tpu_torch.train import parsing_train as pt
+
+    net = schp.init(0, 6).requires_grad_(True)
+    cfg = pt.ParsingTrainConfig(num_classes=6, total_steps=10)
+    step = pt.make_parsing_train_step(cfg, net, pt.make_optimizer(cfg, net))
+    rng = np.random.default_rng(0)
+    label = rng.integers(0, 6, (2, 64, 64))
+    batch = {"image": torch.randn(2, 64, 64, 3, device="cuda"),
+             "label": torch.from_numpy(label).cuda(),
+             "edge": torch.from_numpy(pt.edges_from_labels(label)).cuda()}
+    rm0 = net.bn1.running_mean.clone()
+    for i in range(2):
+        fba.COUNTER.reset()
+        loss = step(i, batch)["loss"]
+        assert torch.isfinite(loss) and fba.COUNTER.count == 119
+    assert (net.bn1.running_mean - rm0).abs().max() > 0
+
+
 def test_full_width_parsing_returns_the_contract(cuda):
     """The SCHP parser at full width (ATR 512 + LIP 473) on a 200x150
     photo: a uint8 map with labels 0-18, the face mask of label 11, and

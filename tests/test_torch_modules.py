@@ -318,8 +318,9 @@ def test_port_imports_no_jax():
         PORT_DIR.parent / "chip_smoke.py",
         PORT_DIR.parent / "tests" / "test_torch_gpu.py"]
     assert len(files) > 10
-    # the preset slice's modules, the apps slice's and the preprocessing
-    # slice's are among them
+    # the preset slice's modules, the apps slice's, the preprocessing
+    # slice's, the training CLI's and the parser fine-tune / eval slice's
+    # are among them
     names = {str(f.relative_to(PORT_DIR.parent)) for f in files}
     port = "imagdressing_tpu_torch/"
     assert {port + m for m in (
@@ -334,7 +335,10 @@ def test_port_imports_no_jax():
         "preprocess/openpose/infer.py", "preprocess/openpose/draw.py",
         "postprocess/__init__.py", "postprocess/face_fusion.py",
         "runtime/native.py", "train/checkpoint.py", "train/trackers.py",
-        "core/profiling.py", "apps/train_cli.py")} <= names
+        "core/profiling.py", "apps/train_cli.py", "apps/parsing_cli.py",
+        "train/parsing_losses.py", "train/parsing_train.py",
+        "eval/__init__.py", "eval/cami.py", "eval/clip_score.py",
+        "eval/grid.py", "eval/cli.py", "tools/profile_parse_train.py")} <= names
     for path in files:
         tree = ast.parse(path.read_text(), str(path))
         in_functions = {id(n) for f in ast.walk(tree)

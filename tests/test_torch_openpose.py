@@ -124,9 +124,10 @@ def test_reference_keys_load_bare_and_prefixed(nets):
     keys give the same net."""
     _, net = nets["face"]
     sd = net.state_dict()
-    bare = pface.FaceNet.from_state_dict(sd)
+    bare = pface.FaceNet.from_state_dict(sd, "cpu")
     prefixed = pface.FaceNet.from_state_dict(
-        {f"model{i % 3}.{k}": v.numpy() for i, (k, v) in enumerate(sd.items())})
+        {f"model{i % 3}.{k}": v.numpy() for i, (k, v) in enumerate(sd.items())},
+        "cpu")
     for k, v in sd.items():
         assert torch.equal(bare.state_dict()[k], v)
         assert torch.equal(prefixed.state_dict()[k], v)

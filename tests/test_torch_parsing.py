@@ -204,7 +204,7 @@ def test_init_has_the_jax_shapes_and_distribution(atr):
     """`init`: the JAX tree's keys and shapes (66.8 M parameters), convs
     N(0, 0.05), biases 0, BN identity."""
     tree, _, _ = atr
-    net = pschp.init(0, pschp.NUM_CLASSES_ATR)
+    net = pschp.init(0, pschp.NUM_CLASSES_ATR, "cpu")
     want = {k: tuple(v.shape) for k, v in state_dict_from_jax(tree).items()}
     got = {k: tuple(v.shape) for k, v in net.state_dict().items()}
     assert got == want
@@ -230,7 +230,8 @@ def test_load_schp_state_dict_matches_convert_torch():
           for k, v in net.state_dict().items()}
     sd["module.extra.num_batches_tracked"] = torch.tensor(3)
     want = state_dict_from_jax(jschp.convert_torch(sd, jschp.NUM_CLASSES_LIP))
-    got = pschp.load_schp_state_dict(sd, pschp.NUM_CLASSES_LIP).state_dict()
+    got = pschp.load_schp_state_dict(sd, pschp.NUM_CLASSES_LIP,
+                                     "cpu").state_dict()
     assert got.keys() == want.keys()
     for k in got:
         assert torch.equal(got[k], want[k]), k
