@@ -26,6 +26,14 @@ Phases, each printing one line:
   5. mini_train: two training steps of the same small stack on the card and
      on the CPU with the same random draws: losses, gradient norms and the
      trained weights must agree;
+  5b. dist_check: two gloo ranks on the card (NCCL refuses two ranks on one
+     GPU) against one process, on the mini stack (`tools/dist_check.py`):
+     two ZeRO-2 and two tensor-parallel (model = 2) training steps, a split
+     checkpoint written by rank 0 and read back whole, a non-finite step
+     that changes nothing on either rank, the TP UNet forward, `pose` over
+     the data group on a ragged batch of 3, the server's broadcast rounds,
+     `basic` over the model group, the parser's synced step, and each
+     rank's kernel launches as derived;
   6. time: each kernel's CUDA-event time at a main-path shape, beside its
      plain version's, the PyTorch library call's, and the card's bound
      (bytes, tensor-core FLOPs, and for the flash kernels exp2 per (q, k)
@@ -81,6 +89,12 @@ Phases, each printing one line:
      metrics, checkpoints, the bit-equal step-4 state, the merge and the
      launches per step and per image; the decoder used, s/step, data time,
      peak memory;
+ 13c. dist_main: one NCCL rank at full width: `shard_train_step` (ZeRO-2
+     over a data group of one) against `make_train_step` from the same
+     weights, batch and draws at 512x640 (losses, grad norms, trainables,
+     s/step, peak GiB, launches, the collectives' time in a profiled step),
+     then `apps.train_cli` and `apps.dress` with `--data_parallel -1` as
+     that rank (the flags' path through NCCL);
  14. openpose_check: the OpenPose body, hand and face nets at full width,
      random weights, on the card and on the CPU (TF32 off): their maps and
      keypoints;
@@ -1011,87 +1025,6 @@ def phase_time():
 # ---------------------------------------------------------------------------
 
 
-def mini_models():
-    """A small fp32 stack on the CPU whose head dims suit the card's kernels
-    (multiples of 8), randomly initialised from a CPU generator."""
-    import torch
-
-    from imagdressing_tpu_torch.core import config as C
-    from imagdressing_tpu_torch.models.clip import CLIPText, CLIPVision
-    from imagdressing_tpu_torch.models.resampler import Resampler
-    from imagdressing_tpu_torch.models.unet import (
-        UNet,
-        init_ref_adapters_from_unet,
-    )
-    from imagdressing_tpu_torch.models.vae import VAE
-    from imagdressing_tpu_torch.ops.nn import init_module
-    from imagdressing_tpu_torch.pipelines.dressing import DressingModels
-
-    cfgs = dict(
-        unet_cfg=C.UNetConfig(block_out_channels=(32, 64, 64, 64),
-                              cross_attention_dim=32, attention_num_heads=4,
-                              norm_num_groups=8),
-        vae_cfg=C.VAEConfig(block_out_channels=(32, 32, 64, 64),
-                            norm_num_groups=8),
-        text_cfg=C.CLIPTextConfig(vocab_size=256, hidden_size=32,
-                                  intermediate_size=64, num_layers=2,
-                                  num_heads=4),
-        vision_cfg=C.CLIPVisionConfig(hidden_size=48, intermediate_size=96,
-                                      num_layers=3, num_heads=4,
-                                      image_size=56, patch_size=14,
-                                      projection_dim=32),
-        resampler_cfg=C.ResamplerConfig(dim=32, depth=1, dim_head=8, heads=4,
-                                        num_queries=8, embedding_dim=48,
-                                        output_dim=32),
-    )
-    gen = torch.Generator().manual_seed(0)
-    mods = dict(unet=UNet(cfgs["unet_cfg"]), ref_unet=UNet(cfgs["unet_cfg"]),
-                resampler=Resampler(cfgs["resampler_cfg"]),
-                vae=VAE(cfgs["vae_cfg"]), text=CLIPText(cfgs["text_cfg"]),
-                vision=CLIPVision(cfgs["vision_cfg"]))
-    for m in mods.values():
-        init_module(m, gen)
-    mods["ref_adapters"] = init_ref_adapters_from_unet(mods["unet"])
-    for m in mods.values():
-        m.eval().requires_grad_(False)
-    return DressingModels(**cfgs, **mods)
-
-
-def mini_preset_models():
-    """The mini stack with a ControlNet and the IP adapters + ProjPlus, drawn
-    from the same CPU generator after the mini stack's own; every ControlNet
-    leaf perturbed by 0.05 * N(0, 1) (its output convs start at zero)."""
-    import torch
-
-    from imagdressing_tpu_torch.core.config import (
-        ControlNetConfig,
-        ProjPlusConfig,
-    )
-    from imagdressing_tpu_torch.models.controlnet import ControlNet
-    from imagdressing_tpu_torch.models.resampler import ProjPlus
-    from imagdressing_tpu_torch.models.unet import IPAdapters
-    from imagdressing_tpu_torch.ops.nn import init_module
-
-    models = mini_models()
-    ucfg = models.unet_cfg
-    models.controlnet_cfg = ControlNetConfig(unet=ucfg)
-    models.projplus_cfg = ProjPlusConfig(
-        cross_attention_dim=32, id_embeddings_dim=16, clip_embeddings_dim=48,
-        num_tokens=4, depth=1, dim_head=8)
-    models.controlnet = ControlNet(models.controlnet_cfg)
-    models.ip_adapters = IPAdapters(ucfg)
-    models.proj_plus = ProjPlus(models.projplus_cfg)
-    gen = torch.Generator().manual_seed(1)
-    for name in ("controlnet", "ip_adapters", "proj_plus"):
-        m = getattr(models, name)
-        init_module(m, gen)
-        m.eval().requires_grad_(False)
-    with torch.no_grad():
-        for prm in models.controlnet.parameters():
-            prm.add_(0.05 * torch.randn(prm.shape, generator=gen))
-    return models
-
-
 # (preset, preset overrides) of the mini card-vs-CPU runs
 MINI_PRESETS = [("pose", {}), ("ipa_pose", {}),
                 ("inpaint", {"strength": 0.99}),
@@ -1107,9 +1040,10 @@ def phase_mini_presets():
 
     from imagdressing_tpu_torch.core.config import PRESETS
     from imagdressing_tpu_torch.pipelines.dressing import DressingPipeline
+    from imagdressing_tpu_torch.tools import dist_check
     from imagdressing_tpu_torch.tools.profile_infer import preset_inputs
 
-    cpu = mini_preset_models()
+    cpu = dist_check.mini_preset_models()
     gpu = copy.deepcopy(cpu)
     for m in gpu.modules().values():
         m.to("cuda")
@@ -1144,8 +1078,9 @@ def phase_mini():
         MODEL_NAMES,
         DressingPipeline,
     )
+    from imagdressing_tpu_torch.tools import dist_check
 
-    cpu = mini_models()
+    cpu = dist_check.mini_models()
     gpu = copy.deepcopy(cpu)
     for name in MODEL_NAMES:
         getattr(gpu, name).to("cuda")
@@ -1203,9 +1138,10 @@ def phase_mini_train():
 
     from imagdressing_tpu_torch.core.config import TrainConfig
     from imagdressing_tpu_torch.pipelines.dressing import MODEL_NAMES
+    from imagdressing_tpu_torch.tools import dist_check
     from imagdressing_tpu_torch.train import step as tstep
 
-    cpu = mini_models()
+    cpu = dist_check.mini_models()
     gpu = copy.deepcopy(cpu)
     for name in MODEL_NAMES:
         getattr(gpu, name).to("cuda")
@@ -3106,6 +3042,297 @@ def phase_eval(root, pre):
 
 
 
+# dist_check's bounds, 2 ranks against 1 process on one card (fp32, TF32
+# off): relative for losses and grad norms, absolute for the trainables
+# (the AdamW step is ~1e-3 an element, as phase_mini_train) and images,
+# relative to the largest value for the moments (mu is stored in bf16: one
+# rounding step of the largest element is 2^-7 of it); the parser as
+# tests/test_torch_parsing_steps.py holds the random-init net (every
+# leaf's update within 0.15 in L2, statistics within 3e-3)
+DIST_BOUNDS = {"loss": 1e-5, "grad_norm": 1e-4, "params": 2e-5, "mu": 8e-3,
+               "nu": 1e-4, "tp_forward": 1e-4, "pose": 1e-4, "serve": 1e-4,
+               "basic_tp": 1e-4, "parser/loss": 1e-5,
+               "parser/update_l2": 0.15, "parser/stats": 3e-3}
+
+
+def _dist_bound(key):
+    if key.endswith("/ranks"):
+        return 0.0  # both ranks hold the same result
+    return DIST_BOUNDS.get(key, DIST_BOUNDS.get(key.split("/")[-1]))
+
+
+def phase_dist_check():
+    """Two gloo ranks on the one card (NCCL refuses two ranks on one GPU)
+    against one process, on the mini stack (`tools/dist_check.py`): two
+    ZeRO-2 steps and two TP (model = 2) steps against the one-process step
+    (losses, grad norms, every trainable, mu, nu), a split checkpoint
+    (written by rank 0, read back whole), a non-finite step that changes
+    nothing on either rank, the TP UNet forward, `pose` over the data group
+    on a ragged batch of 3 against single runs, the server's broadcast
+    rounds, `basic` over the model group, the parser's synced step; each
+    rank's K1-K7 launches against the counts derived from the code."""
+    import torch
+
+    from imagdressing_tpu_torch.tools import dist_check as dc
+    from imagdressing_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+        saved_steps,
+    )
+    from imagdressing_tpu_torch.train import step as tstep
+
+    with tempfile.TemporaryDirectory(prefix="_ckpt_smoke_dist_",
+                                     dir=ROOT) as tmp:
+        spec = dc.make_spec("cuda", ckpt_dir=os.path.join(tmp, "ckpt"))
+        t0 = time.perf_counter()
+        ranks = dc.run_ranks(spec, timeout=900)
+        ranks_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        one = dc.single(spec)
+        single_s = time.perf_counter() - t0
+        models = dc.mini_models()
+        for m in models.modules().values():
+            m.to("cuda")
+        template, _, _ = tstep.init_train_state(models, dc.train_config())
+        restored, _ = CheckpointManager(spec["ckpt_dir"]).restore(template)
+        steps = saved_steps(spec["ckpt_dir"])
+        ckpt_err = float(abs(dc._flat_host(restored)["params"]
+                             - ranks[0]["zero2"]["params"]).max())
+    diffs = dc.differences(ranks, one)
+    for kind in ("zero2", "tp"):
+        for k in ("mu", "nu"):
+            scale = float(abs(one["train"][k]).max())
+            diffs[f"{kind}/{k}"] /= scale
+    train = expected_train_launches("full")
+    derived = {
+        "zero2": {k: 3 * v for k, v in train.items()},
+        "tp": {k: 2 * v for k, v in train.items()},
+        "pose": expected_launches(dc.GEN_STEPS, True, 1),
+        "parser": {"bn_act": 119},
+    }
+    launches_ok = all(
+        {k: v for k, v in r["launches"][name].items() if v} == want
+        for r in ranks for name, want in derived.items())
+    flags = [r["zero2"][k] for r in ranks
+             for k in ("nonfinite_params_kept", "nonfinite_opt_kept")]
+    over = {k: v for k, v in diffs.items() if not v <= _dist_bound(k)}
+    ok = bool(not over and all(flags) and launches_ok and steps == [2]
+              and ckpt_err == 0.0)
+    emit("dist_check", ranks=2, backend="gloo", device="cuda",
+         ranks_s=ranks_s, single_s=single_s, diffs=diffs,
+         bounds={k: _dist_bound(k) for k in diffs}, over=over,
+         nonfinite_kept=flags, checkpoint_steps=steps,
+         checkpoint_max_abs_err=ckpt_err,
+         launches_per_rank=[r["launches"] for r in ranks],
+         launches_derived=derived, ok=ok)
+    torch.cuda.synchronize()
+    if not ok:
+        raise SmokeFailure(f"dist_check: over {over}, non-finite kept "
+                           f"{flags}, launches ok {launches_ok}, "
+                           f"checkpoint {steps} {ckpt_err}")
+
+
+DIST_STEPS = 3
+
+
+def _one_rank_world(fn):
+    """fn() as the one rank of an NCCL world (torchrun's environment for
+    one process), then out of it, the environment as it was."""
+    from imagdressing_tpu_torch.core import mesh as mesh_lib
+    from imagdressing_tpu_torch.parallel import launch
+
+    env = launch.rank_env(0, 1, launch.free_port())
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        mesh_lib.destroy()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _profile_summary(prof):
+    """-> {"device_ms": every kernel's device time, "nccl_device_ms": the
+    NCCL kernels', "collectives": {collective op or kernel: [host ms,
+    device ms]}, "host_top": the 8 ops with the most host time of their
+    own, [name, ms, calls]} of a profiled window."""
+    from torch.autograd import DeviceType
+
+    def device_ms(row):
+        return getattr(row, "self_device_time_total",
+                       getattr(row, "self_cuda_time_total", 0.0)) / 1e3
+
+    rows, kernels, nccl, host = {}, 0.0, 0.0, []
+    for row in prof.key_averages():
+        name = row.key.lower()
+        on_device = row.device_type == DeviceType.CUDA
+        if on_device:
+            kernels += device_ms(row)
+        else:
+            host.append([row.key, row.self_cpu_time_total / 1e3, row.count])
+        if "nccl" in name or name.startswith("c10d"):
+            rows[row.key] = [row.cpu_time_total / 1e3, device_ms(row)]
+            if on_device:
+                nccl += device_ms(row)
+    host.sort(key=lambda r: -r[1])
+    return {"device_ms": kernels, "nccl_device_ms": nccl,
+            "collectives": rows, "host_top": host[:8]}
+
+
+def _train_full_width(kind, mesh, counters):
+    """1 warm and DIST_STEPS timed steps at 512x640, batch 1, then one
+    profiled step, from init_random(0) and fixed draws: kind "single"
+    (`make_train_step`) or "zero2" (`shard_train_step` over the mesh)."""
+    import gc
+
+    import torch
+
+    from imagdressing_tpu_torch.core.config import TrainConfig
+    from imagdressing_tpu_torch.pipelines.dressing import DressingModels
+    from imagdressing_tpu_torch.train import step as tstep
+
+    models = DressingModels.init_random(0).cast_for_training(torch.bfloat16)
+    cfg = TrainConfig(train_batch_size=1, warmup_steps=2,
+                      remat_policy="full")
+    state, frozen, tx = tstep.init_train_state(models, cfg)
+    if kind == "zero2":
+        step, state, frozen = tstep.shard_train_step(models, cfg, tx, mesh,
+                                                     state, frozen)
+    else:
+        step = tstep.make_train_step(models, cfg, tx)
+    batch = _train_batch(1, 640, 512, 224, 49408, "cuda", 0)
+    draws = [tstep.make_draws(0, i, [0], (80, 64, 4), 1000, "cuda")
+             for i in range(DIST_STEPS + 2)]
+    state, _ = step(state, frozen, batch, 0, draws=draws[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    seconds, losses, norms = [], [], []
+    for i in range(1, DIST_STEPS + 1):
+        t0 = time.perf_counter()
+        state, m = step(state, frozen, batch, 0, draws=draws[i])
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    launches = {k: c.count / DIST_STEPS for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        state, m = step(state, frozen, batch, 0, draws=draws[-1])
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+    profiled = dict(_profile_summary(prof),
+                    wall_ms=(time.perf_counter() - t0) * 1e3)
+    flat = torch.cat([p.detach().float().reshape(-1).cpu()
+                      for p in tstep.trainable_parameters(state.params)])
+    local_moments = int(state.opt_state.mu.numel())
+    del models, state, frozen, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(s_per_step=sorted(seconds)[len(seconds) // 2],
+                step_s=seconds, losses=losses, grad_norms=norms,
+                peak_gib=peak, launches_per_step=launches,
+                profiled_step=profiled, local_moments=local_moments), flat
+
+
+def phase_dist_main(paths, counters):
+    """One NCCL rank at full width: `shard_train_step` (ZeRO-2 over a data
+    group of one) against `make_train_step` from the same weights, batch
+    and draws at 512x640, batch 1 (losses, grad norms, the trainables
+    after, s/step, peak GiB, launches per step, and a profiled step's wall,
+    device time, NCCL kernels' time and costliest host ops); then `apps.train_cli --data_parallel -1` (2 steps,
+    a checkpoint) and `apps.dress --data_parallel -1` (phase_dress's 5
+    garments, batch 4, 4 steps) as that rank: the flags' path through
+    NCCL."""
+    import torch
+
+    from imagdressing_tpu_torch.apps import dress, train_cli
+    from imagdressing_tpu_torch.apps import image_utils as iu
+    from imagdressing_tpu_torch.core import mesh as mesh_lib
+    from imagdressing_tpu_torch.train import checkpoint as ck
+
+    single, flat_single = _train_full_width("single", None, counters)
+
+    def zero2():
+        dev = mesh_lib.init_from_env("nccl")
+        return _train_full_width("zero2", mesh_lib.make_mesh(device=dev),
+                                 counters)
+
+    sharded, flat_zero = _one_rank_world(zero2)
+    param_err = float((flat_zero - flat_single).abs().max())
+    loss_err = max(abs(a - b) / abs(b) for a, b in
+                   zip(sharded["losses"], single["losses"]))
+    norm_err = max(abs(a - b) / abs(b) for a, b in
+                   zip(sharded["grad_norms"], single["grad_norms"]))
+    del flat_single, flat_zero
+
+    root = os.path.dirname(paths["base_dir"])
+    data = os.path.join(root, "igpair")
+    out = os.path.join(root, "dist_run")
+    argv = ["--data_json_file", os.path.join(data, "manifest.json"),
+            "--data_root_path", data, "--base_dir", paths["base_dir"],
+            "--vae_path", paths["vae_path"],
+            "--image_encoder_path", paths["image_encoder_path"],
+            "--output_dir", out, "--train_batch_size", "1",
+            "--num_train_steps", "2", "--checkpointing_steps", "2",
+            "--logging_steps", "1", "--lr_warmup_steps", "1",
+            "--data_parallel", "-1", "--device", "cuda"]
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    state = _one_rank_world(lambda: train_cli.main(argv))
+    cli_s = time.perf_counter() - t0
+    cli_layout = type(state.layout).__name__
+    cli_launches = {k: c.count / 2 for k, c in counters.items()}
+    del state
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        cli_losses = [json.loads(x)["loss"] for x in f]
+    cli_steps = ck.saved_steps(os.path.join(out, "checkpoints"))
+
+    cloth_dir = os.path.join(root, "cloths")
+    dress_out = os.path.join(root, "dist_out")
+    t0 = time.perf_counter()
+    _one_rank_world(lambda: dress.main([
+        "--base_dir", paths["base_dir"], "--vae_path", paths["vae_path"],
+        "--image_encoder_path", paths["image_encoder_path"],
+        "--model_ckpt", paths["model_ckpt"], "--cloth_dir", cloth_dir,
+        "--batch_size", "4", "--num_inference_steps", "4",
+        "--output_path", dress_out, "--data_parallel", "-1",
+        "--device", "cuda"]))
+    dress_s = time.perf_counter() - t0
+    saved = sorted(os.listdir(dress_out))
+    finite = all(math.isfinite(x) for x in sharded["losses"] + cli_losses)
+    train = expected_train_launches("full")
+    ok = bool(finite and loss_err <= 1e-3 and norm_err <= 1e-2
+              and param_err <= 1e-4
+              and sharded["launches_per_step"] == train
+              and cli_layout == "ZeroLayout" and cli_launches == train
+              and len(cli_losses) == 2 and cli_steps == [2]
+              and saved == sorted(os.listdir(cloth_dir))
+              and iu.read_image(os.path.join(dress_out, saved[0])).std() > 0)
+    emit("dist_main", size="512x640", batch=1, backend="nccl", ranks=1,
+         steps=DIST_STEPS, single=single, zero2=sharded,
+         zero2_overhead=sharded["s_per_step"] / single["s_per_step"] - 1,
+         loss_rel_err=loss_err, grad_norm_rel_err=norm_err,
+         param_max_abs_err=param_err, train_cli_s=cli_s,
+         train_cli_layout=cli_layout, train_cli_losses=cli_losses,
+         train_cli_launches_per_step=cli_launches,
+         train_cli_checkpoints=cli_steps, dress_s=dress_s,
+         dress_saved=saved, nvidia_smi=nvidia_smi(), ok=ok)
+    torch.cuda.synchronize()
+    if not ok:
+        raise SmokeFailure("dist_main: ZeRO-2 at one rank against one "
+                           "device, or the flags' path, disagree")
+
+
 def main() -> int:
     import torch
 
@@ -3142,6 +3369,7 @@ def main() -> int:
         phase_mini()
         phase_mini_presets()
         phase_mini_train()
+        phase_dist_check()
         phase_parse_check()
         timings = phase_time()
         inference = {"flash_fwd": fa.COUNTER, "gn_silu_conv3x3": fgc.COUNTER,
@@ -3167,6 +3395,7 @@ def main() -> int:
             del models
             phase_dress(paths)
             phase_train_cli(paths, training)
+            phase_dist_main(paths, training)
             phase_openpose_check()
             pre = write_preprocess(root)
             phase_person(root)

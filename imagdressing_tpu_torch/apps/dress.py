@@ -25,9 +25,17 @@ ControlNet's condition, once per photo.
 garment UNet, its adapters and the Resampler, cast to the compute dtype.
 
 Runs on the card (`--device cuda`, the default; raises on a host without
-one) or, with `--device cpu`, with every kernel's plain version. Not ported
-yet, and raising with their ROADMAP pointer: --data_parallel /
---tensor_parallel other than 1 (multi-GPU).
+one) or, with `--device cpu`, with every kernel's plain version.
+
+Over several GPUs, one process per rank (the JAX CLI's (data, model)
+mesh): `--data_parallel N` (-1: every visible GPU) splits each batch's
+rows over N ranks, `--tensor_parallel M` splits the UNets over M
+(`core/tp.py`). The CLI starts the N x M ranks itself, or runs as one rank
+of a world torchrun started (`torchrun --nproc_per_node 4 -m
+imagdressing_tpu_torch.apps.dress --data_parallel 4 ...`); the ranks join
+over NCCL, each on its own GPU, and rank 0 writes the images. The batch is
+at least N. Asking for more GPUs than are visible raises (no CPU stands
+in); `--allow_cpu_mesh` runs CPU ranks over gloo (tests).
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import sys
 
 import numpy as np
 
@@ -97,30 +106,42 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="'cuda' (the card, default) or 'cpu' (every "
                         "kernel's plain version)")
     p.add_argument("--data_parallel", type=int, default=1,
-                   help="only 1: multi-GPU is not ported yet")
+                   help="ranks the batch rows split over (-1: every "
+                        "visible GPU)")
     p.add_argument("--tensor_parallel", type=int, default=1,
-                   help="only 1: multi-GPU is not ported yet")
+                   help="ranks each UNet is split over (core/tp.py)")
+    p.add_argument("--allow_cpu_mesh", action="store_true",
+                   help="permit CPU ranks over gloo (tests only)")
     p.add_argument("--sampler", default=None,
                    choices=[None, "ddim", "unipc", "dpm2m"])
     return p
 
 
 def main(argv=None):
+    from imagdressing_tpu_torch.parallel import launch
+
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_argparser().parse_args(argv)
+    if not args.cloth_dir and not args.cloth_path:
+        raise SystemExit("one of --cloth_path / --cloth_dir is required")
+    launch.run_app(main, argv, lambda mesh: _dress(args, mesh),
+                   data_parallel=args.data_parallel,
+                   tensor_parallel=args.tensor_parallel, device=args.device,
+                   allow_cpu_mesh=args.allow_cpu_mesh)
+
+
+def _dress(args, mesh):
     from imagdressing_tpu_torch.apps import image_utils as iu
     from imagdressing_tpu_torch.apps.loader import (
         load_dressing_models,
         merge_trained_checkpoint,
     )
-    from imagdressing_tpu_torch.apps.serve import MULTI_GPU_PENDING
     from imagdressing_tpu_torch.apps.tokenizer import load_tokenizer
     from imagdressing_tpu_torch.core.config import PRESETS
     from imagdressing_tpu_torch.pipelines.dressing import DressingPipeline
 
-    if args.data_parallel != 1 or args.tensor_parallel != 1:
-        raise SystemExit(MULTI_GPU_PENDING)
-    if not args.cloth_dir and not args.cloth_path:
-        raise SystemExit("one of --cloth_path / --cloth_dir is required")
+    device = args.device if mesh is None else mesh.device
+    writer = mesh is None or mesh.rank == 0
 
     preset = PRESETS[args.preset]
     if args.sampler:
@@ -139,12 +160,12 @@ def main(argv=None):
         controlnet_path=args.controlnet_path,
         ip_ckpt=args.ip_ckpt,
         lora_scale=args.lora_scale if preset.use_ipa else 0.0,
-        device=args.device,
+        device=device,
     )
     if args.trained_ckpt:
         models = merge_trained_checkpoint(models, args.trained_ckpt)
     tokenizer = load_tokenizer(os.path.join(args.base_dir, "tokenizer"))
-    pipe = DressingPipeline(models, preset, device=args.device)
+    pipe = DressingPipeline(models, preset, device=device, mesh=mesh)
 
     prompt = args.prompt or (
         "A beautiful woman, confident smile expression, best quality, "
@@ -202,8 +223,7 @@ def main(argv=None):
                 person = iu.prepare_person(person_path, preset.height,
                                            preset.width)
                 mask = person_upper_body_mask(person_path, preset.height,
-                                              preset.width,
-                                              device=args.device)
+                                              preset.width, device=device)
                 # the inpaint ControlNet's condition: the person in [0, 1]
                 # with the masked pixels at -1
                 cond = make_inpaint_condition((person[0] + 1.0) / 2.0,
@@ -232,7 +252,7 @@ def main(argv=None):
     items = [(c, pp, fp, mp) for pp in poses for fp in faces
              for mp in persons for c in cloths]
 
-    bs = max(1, args.batch_size)
+    bs = max(1, args.batch_size, 1 if mesh is None else mesh.data)
     for start in range(0, len(items), bs):
         chunk = items[start:start + bs]
         n_real = len(chunk)
@@ -264,7 +284,7 @@ def main(argv=None):
             eta=args.eta,
             **batched_extra,
         )
-        for i, item in enumerate(chunk[:n_real]):
+        for i, item in enumerate(chunk[:n_real] if writer else ()):
             garment = iu.resize(prepped[i][2], (preset.width, preset.height),
                                 "bicubic")
             collage = iu.image_grid([garment] + iu.to_uint8(out[i:i + 1]),

@@ -9,12 +9,18 @@ global_local_evaluate.py):
       --restore log/params.npz [--flip] [--scales 0.75,1.0,1.25]
 
 Train: AugmentCE2P with batch-statistics ABN, the CE + Lovász + edge
-criterion, SGD with the poly schedule (`train/parsing_train.py`), on one
-device. Eval: logits averaged over the optional horizontal flip (left /
-right classes swapped back) and the scales, resized to the input size with
-align_corners=True, one dataset-wide confusion matrix, the mean IoU; the
-eval forward is the inference net, so every ABN is one K7 launch (119 per
-forward). Both run on the card unless `--device cpu`.
+criterion, SGD with the poly schedule (`train/parsing_train.py`), over the
+data group (the JAX CLI's whole mesh): `--data_parallel N` (default -1,
+every visible GPU) starts N ranks itself, or run under torchrun; each rank
+takes its `--batch_size` rows of the global batch, the statistics and
+gradients are synced (`shard_parsing_train_step`), rank 0 writes
+params.npz; one rank runs the single-device step. `--allow_cpu_mesh` runs
+CPU ranks over gloo (tests). Eval: logits averaged over the optional
+horizontal flip (left / right classes swapped back) and the scales,
+resized to the input size with align_corners=True, one dataset-wide
+confusion matrix, the mean IoU; the eval forward is the inference net, so
+every ABN is one K7 launch (119 per forward). Both run on the card unless
+`--device cpu`.
 
 `params.npz` holds the JAX package's key paths ("layer1/0/bn1/weight",
 HWIO "kernel"s, BN "running_mean" / "running_var"): a file written by
@@ -28,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 import time
 from typing import Dict, List, Tuple
 
@@ -54,6 +61,10 @@ def build_argparser() -> argparse.ArgumentParser:
                         "(else random)")
     t.add_argument("--log_every", type=int, default=10)
     t.add_argument("--device", default="cuda")
+    t.add_argument("--data_parallel", type=int, default=-1,
+                   help="data-parallel ranks (-1: every visible GPU)")
+    t.add_argument("--allow_cpu_mesh", action="store_true",
+                   help="permit CPU ranks over gloo (tests only)")
 
     e = sub.add_parser("eval")
     e.add_argument("--image_dir", required=True)
@@ -158,9 +169,20 @@ def save_params(path: str, net: torch.nn.Module) -> None:
 # ---------------------------------------------------------------------------
 
 
-def run_train(args) -> Dict:
-    """-> {"losses", "step_s", "params"}: the loss of each step, each
-    step's wall time (synchronised) and the written params path."""
+def run_train(args, argv=None) -> Dict:
+    """-> {"losses", "step_s", "params"}: the loss of each step (global),
+    each step's wall time (synchronised) and the written params path; None
+    where this call started the ranks."""
+    from imagdressing_tpu_torch.parallel import launch
+
+    return launch.run_app(main, argv, lambda mesh: _train(args, mesh),
+                          data_parallel=args.data_parallel,
+                          tensor_parallel=1, device=args.device,
+                          allow_cpu_mesh=args.allow_cpu_mesh)
+
+
+def _train(args, mesh) -> Dict:
+    from imagdressing_tpu_torch.core import mesh as mesh_lib
     from imagdressing_tpu_torch.pipelines.dressing import resolve_device
     from imagdressing_tpu_torch.preprocess.parsing import model as schp
     from imagdressing_tpu_torch.train.parsing_train import (
@@ -168,9 +190,11 @@ def run_train(args) -> Dict:
         ParsingTrainConfig,
         make_optimizer,
         make_parsing_train_step,
+        shard_parsing_train_step,
     )
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if mesh is None else mesh.device
+    data, rank = (1, 0) if mesh is None else (mesh.data, mesh.data_rank)
     cfg = ParsingTrainConfig(num_classes=args.num_classes,
                              learning_rate=args.learning_rate,
                              total_steps=args.steps)
@@ -179,7 +203,11 @@ def run_train(args) -> Dict:
     else:
         net = schp.init(0, args.num_classes, device)
     net.requires_grad_(True)
-    step = make_parsing_train_step(cfg, net, make_optimizer(cfg, net))
+    if mesh is None:
+        step = make_parsing_train_step(cfg, net, make_optimizer(cfg, net))
+    else:
+        step = shard_parsing_train_step(cfg, net, make_optimizer(cfg, net),
+                                        mesh)
     ds = ParsingDataset(args.image_dir, args.label_dir, h=args.input_size,
                         w=args.input_size)
     os.makedirs(args.out_dir, exist_ok=True)
@@ -188,18 +216,23 @@ def run_train(args) -> Dict:
     t0 = time.perf_counter()
     for i in range(args.steps):
         ts = time.perf_counter()
-        batch = ds.batch([(i * b + j) % len(ds) for j in range(b)])
+        # this rank's rows of the global batch of b x data
+        batch = ds.batch([(i * b * data + rank * b + j) % len(ds)
+                          for j in range(b)])
         batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
         m = step(i, batch)
         losses.append(float(m["loss"]))  # waits for the step
         step_s.append(time.perf_counter() - ts)
-        if (i + 1) % args.log_every == 0:
+        if (i + 1) % args.log_every == 0 and rank == 0:
             print(f"step {i + 1} loss {losses[-1]:.4f} "
                   f"({(time.perf_counter() - t0) / (i + 1):.2f}s/step)",
                   flush=True)
     out = os.path.join(args.out_dir, "params.npz")
-    save_params(out, net)
-    print("saved", out, flush=True)
+    if rank == 0:
+        save_params(out, net)
+        print("saved", out, flush=True)
+    if mesh is not None:
+        mesh_lib.barrier(mesh.world_group)
     return {"losses": losses, "step_s": step_s, "params": out}
 
 
@@ -276,8 +309,9 @@ def run_eval(args) -> float:
 
 def main(argv=None):
     """-> `run_train`'s dict or `run_eval`'s mIoU."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_argparser().parse_args(argv)
-    return run_train(args) if args.cmd == "train" else run_eval(args)
+    return run_train(args, argv) if args.cmd == "train" else run_eval(args)
 
 
 if __name__ == "__main__":

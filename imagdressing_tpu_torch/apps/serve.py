@@ -18,6 +18,15 @@ API:
 
 Run: python -m imagdressing_tpu_torch.apps.serve --base_dir ... (see
 `main`); `--device cpu` runs every kernel's plain version on the host.
+
+Over several GPUs (`--data_parallel N`, -1 every visible GPU, and
+`--tensor_parallel M`, as `apps.dress`; or one rank of a torchrun world)
+rank 0 runs the HTTP server and the micro-batching worker; each round's
+arguments go to every rank over a gloo control group (`MeshPipe`), and
+every rank runs the call (`follow`): the batch's rows split over the data
+ranks, the UNets over the model ranks. An idle server sends a heartbeat so
+that the other ranks' wait stays within the group's timeout. Asking for
+more GPUs than are visible raises.
 """
 
 from __future__ import annotations
@@ -37,9 +46,8 @@ from imagdressing_tpu_torch.apps import image_utils as iu
 from imagdressing_tpu_torch.apps.png import encode_png
 from imagdressing_tpu_torch.train.data import clip_preprocess_np
 
-MULTI_GPU_PENDING = (
-    "--data_parallel / --tensor_parallel other than 1 wait for the port's "
-    "multi-GPU slice (ROADMAP Queue 1, multi-GPU); run with one card")
+# seconds between the idle server's heartbeats to the other ranks
+HEARTBEAT_S = 60.0
 
 _FORM = """<!doctype html><title>IMAGDressing</title>
 <h2>IMAGDressing</h2>
@@ -158,6 +166,57 @@ class InferenceWorker:
                         # on a LATER batch member): don't clobber
                     r.result = {"error": f"{type(e).__name__}: {e}"}
                     r.event.set()
+
+
+class MeshPipe:
+    """Rank 0's pipeline over a mesh: a call's arguments go to every rank
+    first (over `group`, a gloo process group of all ranks), then rank 0
+    runs its part of the call, which the other ranks run in `follow`.
+    While no call comes, a heartbeat goes out every `heartbeat_s`."""
+
+    def __init__(self, pipe, group, heartbeat_s: float = HEARTBEAT_S):
+        self.pipe, self.group = pipe, group
+        self.models = pipe.models
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._beat = threading.Thread(target=self._heartbeat,
+                                      args=(heartbeat_s,), daemon=True)
+        self._beat.start()
+
+    def _send(self, message) -> None:
+        from imagdressing_tpu_torch.core.mesh import broadcast_object
+
+        broadcast_object(message, self.group)
+
+    def _heartbeat(self, every: float) -> None:
+        while not self._stop.wait(every):
+            with self._lock:
+                self._send(("beat", None))
+
+    def __call__(self, **kwargs):
+        with self._lock:
+            self._send(("call", kwargs))
+            return self.pipe(**kwargs)
+
+    def close(self) -> None:
+        """Release the other ranks from `follow`."""
+        self._stop.set()
+        self._beat.join()
+        with self._lock:
+            self._send(("stop", None))
+
+
+def follow(pipe, group) -> None:
+    """A rank other than 0: run every call `MeshPipe` announces, until it
+    closes."""
+    from imagdressing_tpu_torch.core.mesh import broadcast_object
+
+    while True:
+        op, kwargs = broadcast_object(None, group)
+        if op == "stop":
+            return
+        if op == "call":
+            pipe(**kwargs)
 
 
 def _png_b64(img: np.ndarray) -> str:
@@ -361,45 +420,69 @@ def build_argparser():
                    help="'cuda' (the card, default) or 'cpu' (every kernel's "
                         "plain version)")
     p.add_argument("--data_parallel", type=int, default=1,
-                   help="only 1: multi-GPU serving is not ported yet")
+                   help="ranks a round's rows split over (-1: every "
+                        "visible GPU)")
     p.add_argument("--tensor_parallel", type=int, default=1,
-                   help="only 1: multi-GPU serving is not ported yet")
+                   help="ranks each UNet is split over (core/tp.py)")
+    p.add_argument("--allow_cpu_mesh", action="store_true",
+                   help="permit CPU ranks over gloo (tests only)")
     return p
 
 
 def main(argv=None):
+    import sys
+
+    from imagdressing_tpu_torch.parallel import launch
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = build_argparser().parse_args(argv)
+    launch.run_app(main, argv, lambda mesh: _serve(args, mesh),
+                   data_parallel=args.data_parallel,
+                   tensor_parallel=args.tensor_parallel, device=args.device,
+                   allow_cpu_mesh=args.allow_cpu_mesh)
+
+
+def _serve(args, mesh):
     import os
 
-    args = build_argparser().parse_args(argv)
-    if args.data_parallel != 1 or args.tensor_parallel != 1:
-        raise SystemExit(MULTI_GPU_PENDING)
+    import torch.distributed as dist
 
     from imagdressing_tpu_torch.apps.loader import load_dressing_models
     from imagdressing_tpu_torch.apps.tokenizer import load_tokenizer
     from imagdressing_tpu_torch.core.config import PRESETS
     from imagdressing_tpu_torch.pipelines.dressing import DressingPipeline
 
+    device = args.device if mesh is None else mesh.device
     preset = PRESETS[args.preset]
-    post = load_post_process(args.post_process, args.device) \
-        if args.post_process else None
     models = load_dressing_models(
         base_dir=args.base_dir, vae_path=args.vae_path,
         image_encoder_path=args.image_encoder_path,
-        model_ckpt=args.model_ckpt, device=args.device,
+        model_ckpt=args.model_ckpt, device=device,
     )
-    pipe = DressingPipeline(models, preset, device=args.device)
+    pipe = DressingPipeline(models, preset, device=device, mesh=mesh)
+    if mesh is not None and mesh.size > 1:
+        control = dist.new_group(backend="gloo")
+        if mesh.rank != 0:
+            follow(pipe, control)
+            return
+        pipe = MeshPipe(pipe, control)
+    post = load_post_process(args.post_process, device) \
+        if args.post_process else None
     tokenizer = load_tokenizer(os.path.join(args.base_dir, "tokenizer"))
     worker = InferenceWorker(pipe, tokenizer, max_batch=args.max_batch,
                              post_process=post)
 
-    if args.ui == "gradio":
-        run_gradio(worker, preset, args.server_port)
-        return
-
-    server = ThreadingHTTPServer(("0.0.0.0", args.server_port),
-                                 make_handler(worker, preset))
-    print(f"serving on :{args.server_port}", flush=True)
-    server.serve_forever()
+    try:
+        if args.ui == "gradio":
+            run_gradio(worker, preset, args.server_port)
+            return
+        server = ThreadingHTTPServer(("0.0.0.0", args.server_port),
+                                     make_handler(worker, preset))
+        print(f"serving on :{args.server_port}", flush=True)
+        server.serve_forever()
+    finally:
+        if isinstance(pipe, MeshPipe):
+            pipe.close()
 
 
 if __name__ == "__main__":

@@ -21,7 +21,17 @@ models in bf16, fp32 master weights for the trainables.
 
 Runs on the card (`--device cuda`, the default; raises on a host without
 one) or, with `--device cpu`, with every kernel's plain version.
-`--tensor_parallel` other than 1 raises (multi-GPU is not ported).
+
+Over several GPUs, one process per rank: `--data_parallel N` (default -1,
+every visible GPU, as the JAX CLI's whole mesh) with `--tensor_parallel M`
+starts N x M ranks itself, or run under torchrun (`torchrun
+--nproc_per_node 8 -m imagdressing_tpu_torch.apps.train_cli ...`), which
+sets the ranks' environment. The ranks join over NCCL; the step is ZeRO-2
+over the data group (`train.step.shard_train_step`), or with M > 1 tensor
+parallel (`tp_train_step`); `--train_batch_size` is per data rank, the
+global batch `train_batch_size x N`. Only rank 0 writes the metrics and
+the checkpoints, which are those one GPU writes. Asking for more GPUs than
+are visible raises; `--allow_cpu_mesh` runs CPU ranks over gloo (tests).
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+import sys
 import time
 
 
@@ -64,53 +75,63 @@ def build_argparser() -> argparse.ArgumentParser:
                         "tensorboard (adds an offline event file under "
                         "output_dir/logs), all (reference train.py)")
     p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--data_parallel", type=int, default=-1,
+                   help="data-parallel ranks (-1: every visible GPU)")
     p.add_argument("--tensor_parallel", type=int, default=1,
-                   help="only 1: multi-GPU is not ported yet")
+                   help="ranks each UNet is split over (core/tp.py)")
+    p.add_argument("--allow_cpu_mesh", action="store_true",
+                   help="permit CPU ranks over gloo (tests only)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the card, default) or 'cpu' (every "
                         "kernel's plain version)")
     return p
 
 
-def _to_device(batch, device):
-    """numpy batch -> tensors on `device`: from pinned host memory with
-    asynchronous copies on a card."""
-    import torch
-
-    out = {}
-    for k, v in batch.items():
-        t = torch.from_numpy(v)
-        if k == "text_ids":
-            t = t.long()
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        out[k] = t
-    return out
-
-
 def main(argv=None):
-    """Train; returns the final `train.step.TrainState`."""
+    """Train; returns the final `train.step.TrainState` (None where this
+    call started the ranks: they write the run's files)."""
+    from imagdressing_tpu_torch.parallel import launch
+
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_argparser().parse_args(argv)
+    return launch.run_app(main, argv, lambda mesh: _train(args, mesh),
+                          data_parallel=args.data_parallel,
+                          tensor_parallel=args.tensor_parallel,
+                          device=args.device,
+                          allow_cpu_mesh=args.allow_cpu_mesh)
+
+
+def _train(args, mesh):
     import torch
 
     from imagdressing_tpu_torch.apps.loader import load_dressing_models
-    from imagdressing_tpu_torch.apps.serve import MULTI_GPU_PENDING
     from imagdressing_tpu_torch.apps.tokenizer import load_tokenizer
     from imagdressing_tpu_torch.core.config import TrainConfig
     from imagdressing_tpu_torch.core.profiling import StepTimer
     from imagdressing_tpu_torch.pipelines.dressing import resolve_device
     from imagdressing_tpu_torch.train.checkpoint import CheckpointManager
-    from imagdressing_tpu_torch.train.data import IGPairDataset, data_iterator
+    from imagdressing_tpu_torch.train.data import (
+        IGPairDataset,
+        data_iterator,
+        shard_host_batch,
+    )
     from imagdressing_tpu_torch.train.step import (
         init_train_state,
         make_train_step,
+        shard_train_step,
+        tp_train_step,
     )
     from imagdressing_tpu_torch.train.trackers import make_tracker
 
-    if args.tensor_parallel != 1:
-        raise SystemExit(MULTI_GPU_PENDING)
-    device = resolve_device(args.device)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    launched = mesh is not None
+    if not launched:
+        from imagdressing_tpu_torch.core.mesh import make_mesh
+
+        mesh = make_mesh(device=resolve_device(args.device))  # no group
+    device = mesh.device
+    logging.basicConfig(
+        level=logging.INFO if mesh.rank == 0 else logging.WARNING,
+        format="%(asctime)s %(message)s")
     log = logging.getLogger("train")
 
     cfg = TrainConfig(
@@ -135,11 +156,20 @@ def main(argv=None):
         device=device,
     ).cast_for_training(torch.bfloat16)
     state, frozen, tx = init_train_state(models, cfg)
-    train_step = make_train_step(models, cfg, tx)
-    log.info("device %s, batch %d, remat %s", device, cfg.train_batch_size,
-             cfg.remat_policy)
+    if not launched:
+        train_step = make_train_step(models, cfg, tx)
+    elif mesh.model > 1:
+        train_step, state, frozen = tp_train_step(models, cfg, tx, mesh,
+                                                  state, frozen)
+    else:
+        train_step, state, frozen = shard_train_step(models, cfg, tx, mesh,
+                                                     state, frozen)
+    global_batch = cfg.train_batch_size * mesh.data
+    log.info("device %s, mesh %dx%d, global batch %d, remat %s", device,
+             mesh.data, mesh.model, global_batch, cfg.remat_policy)
 
-    ckpt = CheckpointManager(os.path.join(args.output_dir, "checkpoints"))
+    ckpt = CheckpointManager(os.path.join(args.output_dir, "checkpoints"),
+                             rank=mesh.rank, group=mesh.world_group)
     if args.resume_from_checkpoint:
         restored, _ = ckpt.restore(state)
         if restored is not None:
@@ -157,16 +187,20 @@ def main(argv=None):
         image_root=args.data_root_path,
         seed=cfg.seed,
     )
+    # each data rank reads its rows of the global batch
     it = data_iterator(dataset, cfg.train_batch_size,
-                       num_workers=args.dataloader_num_workers, seed=cfg.seed)
+                       num_workers=args.dataloader_num_workers, seed=cfg.seed,
+                       process_index=mesh.data_rank,
+                       process_count=mesh.data)
     os.makedirs(args.output_dir, exist_ok=True)
-    tracker = make_tracker(args.report_to, args.output_dir)
+    tracker = make_tracker(args.report_to, args.output_dir,
+                           rank=mesh.rank)
     try:
         # the step synchronises the device, so step_time_s is its whole
         # work and data_time_s the wait for the next batch
         timer = StepTimer(device)
         for step in range(state.step, cfg.num_train_steps):
-            batch = _to_device(next(it), device)
+            batch = shard_host_batch(mesh, next(it))
             timer.data_done()
             state, metrics = train_step(state, frozen, batch, cfg.seed)
             timer.step_done()
@@ -181,7 +215,7 @@ def main(argv=None):
                     "grad_norm": gnorm,
                     "step_time_s": timer.step_time,
                     "data_time_s": timer.data_time,
-                    "images_per_sec": cfg.train_batch_size
+                    "images_per_sec": global_batch
                     / max(timer.step_time, 1e-9),
                 })
             if (step + 1) % cfg.checkpointing_steps == 0:

@@ -22,7 +22,7 @@ tree, for `convert/export_torch.py`.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple, Union
+from typing import Any, Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -149,3 +149,39 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, StateDict]:
             sub = {adapter_key(layer): p for layer, p in sub.items()}
         out[name] = state_dict_from_jax(sub)
     return out
+
+
+def train_state_from_jax(template, params: Dict[str, Any], *,
+                         mu: Optional[Dict[str, Any]] = None,
+                         nu: Optional[Dict[str, Any]] = None,
+                         step: int = 0, count: int = 0):
+    """A JAX `TrainState`'s trainables and AdamW moments -> the port's
+    per-rank state: `params`, `mu` and `nu` are trees of numpy arrays in the
+    JAX layout with the `TRAINABLE_KEYS` entries (the JAX package's
+    `shard_train_step` state gathered to the host; zero moments where not
+    given), `count` the AdamW step count. `template` (a whole, ZeRO-2 or
+    tensor-parallel `train.step.TrainState`) fixes the flat order and each
+    rank's part, which `train.step.state_from_host` keeps."""
+    import dataclasses
+
+    from imagdressing_tpu_torch.train import step as tstep
+
+    keys = tstep.TRAINABLE_KEYS
+    sds = params_from_jax({k: params[k] for k in keys})
+    flats = {}
+    for what, tree in (("mu", mu), ("nu", nu)):
+        if tree is None:
+            continue
+        moments = params_from_jax({k: tree[k] for k in keys})
+        flats[what] = torch.cat([
+            moments[k][n].reshape(-1).float() for k in keys
+            for n, _ in template.params[k].named_parameters()])
+    n = sum(t.numel() for sd in sds.values() for t in sd.values())
+    opt = {f.name: getattr(template.opt_state, f.name)
+           for f in dataclasses.fields(tstep.OptState)}
+    for what in ("mu", "nu", "acc_grads"):
+        if opt[what] is not None:
+            opt[what] = flats.get(what, torch.zeros(n)).to(opt[what].dtype)
+    opt["count"] = int(count)
+    return tstep.state_from_host(
+        template, {"step": int(step), "params": sds, "opt_state": opt})

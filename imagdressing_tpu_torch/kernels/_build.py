@@ -133,9 +133,16 @@ class LaunchCounter:
 
 def check_operands(name: str, *tensors) -> None:
     """The checks every launch makes on its tensor arguments: on one CUDA
-    device, densely laid out, 16-byte aligned (the kernels move 8 elements
-    per vector load)."""
+    device, the current one (a launch goes to the current device's context
+    on that device's current stream; a rank sets its device once), densely
+    laid out, 16-byte aligned (the kernels move 8 elements per vector
+    load)."""
+    import torch
+
     dev = tensors[0].device
+    if dev.index is not None and dev.index != torch.cuda.current_device():
+        raise ValueError(f"{name}: tensors on {dev}, the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")

@@ -53,7 +53,7 @@ from imagdressing_tpu_torch.ops.nn import (
     Linear,
     Norm,
     Upsample2xConv,
-    geglu,
+    gelu_gate,
     layer_norm,
     timestep_embedding,
 )
@@ -267,10 +267,16 @@ class UNet(nn.Module):
             x = p.conv_shortcut(x)
         return x + h
 
+    def _heads(self, q: torch.Tensor, x: torch.Tensor) -> int:
+        """The heads q holds: all of them, or under tensor parallelism
+        (`core/tp.py`) this rank's share, from q's width against the
+        block's."""
+        return self.cfg.attention_num_heads * q.shape[-1] // x.shape[-1]
+
     def _self_attention(self, p: Attention, x: torch.Tensor, name: str,
                         cond: Conditioning) -> torch.Tensor:
-        heads = self.cfg.attention_num_heads
         q, k, v = p.to_q(x), p.to_k(x), p.to_v(x)
+        heads = self._heads(q, x)
         if cond.ref_kv is not None and name in cond.ref_kv:
             k_ref, v_ref = cond.ref_kv[name]
             if cond.ref_mode == "concat":
@@ -290,8 +296,8 @@ class UNet(nn.Module):
     def _cross_attention(self, p: Attention, x: torch.Tensor,
                          context: torch.Tensor, name: str,
                          cond: Conditioning) -> torch.Tensor:
-        heads = self.cfg.attention_num_heads
         q = p.to_q(x)
+        heads = self._heads(q, x)
         if cond.cross_kv is not None and name in cond.cross_kv:
             k, v = (t.to(q.dtype) for t in cond.cross_kv[name])
         else:
@@ -331,8 +337,7 @@ class UNet(nn.Module):
                 bp.attn2, layer_norm(hidden, bp.norm2.weight, bp.norm2.bias),
                 context, attn2, cond)
             ff_in = layer_norm(hidden, bp.norm3.weight, bp.norm3.bias)
-            hidden = hidden + bp.ff.out(
-                geglu(ff_in, bp.ff.proj.weight, bp.ff.proj.bias))
+            hidden = hidden + bp.ff.out(gelu_gate(bp.ff.proj(ff_in)))
         hidden = p.proj_out(hidden)
         return hidden.reshape(b, h, w, c) + x
 

@@ -96,7 +96,12 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 def geglu(x: torch.Tensor, weight: torch.Tensor,
           bias: Optional[torch.Tensor]) -> torch.Tensor:
     """GEGLU gate: project to 2*inner, h * gelu(gate)."""
-    h, gate = F.linear(x, weight, bias).chunk(2, dim=-1)
+    return gelu_gate(F.linear(x, weight, bias))
+
+
+def gelu_gate(hg: torch.Tensor) -> torch.Tensor:
+    """h * gelu(gate) of a GEGLU projection's output [h | gate]."""
+    h, gate = hg.chunk(2, dim=-1)
     return h * F.gelu(gate)
 
 

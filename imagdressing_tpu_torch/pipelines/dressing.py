@@ -22,6 +22,14 @@ comes from a generator on the device.
 The device is explicit: every entry point defaults to "cuda" and raises
 when no card is present, unless the caller passes device="cpu", which runs
 every kernel's plain PyTorch version (the CPU tests do this).
+
+Over several ranks (`mesh`, a `core.mesh.Mesh`, as the JAX package's
+(data, model) mesh), every rank builds the pipeline and makes the same
+calls: over the data group each rank generates its rows of the batch (a
+ragged batch padded with its last row to a multiple of the group, sliced
+back after the decode) and the images are gathered to every rank; over the
+model group the UNets and their adapters are split (`core/tp.py`). The
+eta > 0 noise of each data rank comes from its own stream.
 """
 
 from __future__ import annotations
@@ -35,6 +43,8 @@ import torch
 from torch import nn
 
 from imagdressing_tpu_torch.convert import params_from_jax
+from imagdressing_tpu_torch.core import mesh as mesh_lib
+from imagdressing_tpu_torch.core import tp as tp_lib
 from imagdressing_tpu_torch.core.config import (
     SAMPLERS,
     CLIPTextConfig,
@@ -298,11 +308,25 @@ def controlnet_keep(n: int, start: float, end: float) -> Tuple[bool, ...]:
     return tuple(bool(not o) for o in off)
 
 
-def eta_seed(seed: int) -> int:
+def eta_seed(seed: int, shard: Optional[int] = None) -> int:
     """The seed of the eta > 0 noise stream, apart from the one that draws
-    the initial latents."""
-    return int(np.random.SeedSequence([seed, 0x657461]).generate_state(
+    the initial latents; data rank `shard`'s own stream under data
+    parallelism (rank 0's is one process's: SeedSequence drops a trailing
+    zero word)."""
+    words = [seed, 0x657461] + ([] if shard is None else [shard])
+    return int(np.random.SeedSequence(words).generate_state(
         1, np.uint64)[0])
+
+
+def _pad_rows(x, n: int):
+    """x with its last row repeated to n rows (numpy or a tensor)."""
+    if x is None or x.shape[0] == n:
+        return x
+    extra = n - x.shape[0]
+    if torch.is_tensor(x):
+        return torch.cat([x, x[-1:].expand(extra, *x.shape[1:])])
+    x = np.asarray(x)
+    return np.concatenate([x, np.repeat(x[-1:], extra, axis=0)])
 
 
 class DressingPipeline:
@@ -312,7 +336,10 @@ class DressingPipeline:
 
     def __init__(self, models: DressingModels, preset: PipelineConfig,
                  sched_cfg: SchedulerConfig = SchedulerConfig(), *,
-                 device: Device = "cuda"):
+                 device: Device = "cuda",
+                 mesh: Optional[mesh_lib.Mesh] = None):
+        """`mesh`: generate over its ranks; with a model split the
+        stack's UNets and adapters are split in place."""
         self.device = resolve_device(device)
         if models.device.type != self.device.type:
             raise ValueError(f"models on {models.device}, pipeline on "
@@ -326,6 +353,9 @@ class DressingPipeline:
         if preset.use_ipa and models.ip_adapters is None:
             raise ValueError(f"preset {preset.name!r} needs the IP adapters "
                              "(init_random(..., with_ipa=True))")
+        if mesh is not None:
+            tp_lib.split_models(models, mesh)
+        self.mesh = mesh
         self.models = models
         self.preset = preset
         self.schedule = ddim.make_schedule(sched_cfg)
@@ -364,7 +394,48 @@ class DressingPipeline:
         inpaint); ipa_pose: faceid_embeds (B, id_dim) and face_clip_image
         (B, 224, 224, 3); inpaint: person_image (B, H, W, 3) in [-1, 1] and
         mask_image (B, H, W, 1) in {0, 1} (1 = regenerate). Returns images
-        (B, H, W, 3) in [0, 1] float32, or uint8 with output_uint8=True."""
+        (B, H, W, 3) in [0, 1] float32, or uint8 with output_uint8=True.
+        Over a mesh, every rank passes the whole batch and gets every
+        image."""
+        rows = dict(prompt_ids=prompt_ids,
+                    negative_prompt_ids=negative_prompt_ids,
+                    ref_image=ref_image, ref_clip_image=ref_clip_image,
+                    latents=latents, pose_image=pose_image,
+                    faceid_embeds=faceid_embeds,
+                    face_clip_image=face_clip_image,
+                    person_image=person_image, mask_image=mask_image)
+        call = dict(num_inference_steps=num_inference_steps,
+                    guidance_scale=guidance_scale, image_scale=image_scale,
+                    controlnet_scale=controlnet_scale,
+                    control_guidance_start=control_guidance_start,
+                    control_guidance_end=control_guidance_end, eta=eta,
+                    output_uint8=output_uint8,
+                    seed=self.preset.seed if seed is None else seed)
+        data = 1 if self.mesh is None else self.mesh.data
+        if data == 1:
+            return self._generate(**rows, **call)
+        b_user = ref_image.shape[0]
+        b = -(-b_user // data) * data
+        if latents is None:
+            # the padded global batch's noise, as one device would draw it
+            f = 2 ** (len(self.models.vae_cfg.block_out_channels) - 1)
+            gen = torch.Generator(device=self.device).manual_seed(
+                call["seed"])
+            rows["latents"] = torch.randn(
+                (b, self.preset.height // f, self.preset.width // f, 4),
+                generator=gen, device=self.device)
+        lo = self.mesh.data_rank * (b // data)
+        local = {k: None if v is None else _pad_rows(v, b)[lo:lo + b // data]
+                 for k, v in rows.items()}
+        return self._generate(**local, **call, eta_shard=self.mesh.data_rank,
+                              gather=True)[:b_user]
+
+    def _generate(self, *, prompt_ids, negative_prompt_ids, ref_image,
+                  ref_clip_image, latents, seed, num_inference_steps,
+                  guidance_scale, image_scale, controlnet_scale,
+                  control_guidance_start, control_guidance_end, eta,
+                  pose_image, faceid_embeds, face_clip_image, person_image,
+                  mask_image, output_uint8, eta_shard=None, gather=False):
         p, m, dev = self.preset, self.models, self.device
         steps = num_inference_steps or p.num_inference_steps
         g = p.guidance_scale if guidance_scale is None else guidance_scale
@@ -481,8 +552,8 @@ class DressingPipeline:
 
         # 7. the sampling loop
         if p.sampler == "ddim":
-            gen = (torch.Generator(device=dev).manual_seed(eta_seed(seed))
-                   if eta else None)
+            gen = (torch.Generator(device=dev).manual_seed(
+                eta_seed(seed, eta_shard)) if eta else None)
             ts_next = ddim.next_timesteps(ts_used)
             for i, t in enumerate(ts_used):
                 eps = eps_fn(lat, int(t))
@@ -504,6 +575,8 @@ class DressingPipeline:
         out = (images.float() * 0.5 + 0.5).clamp(0.0, 1.0)
         if output_uint8:
             out = torch.round(out * 255.0).to(torch.uint8)
+        if gather:
+            out = mesh_lib.all_gather(out, self.mesh.data_group)
         out = out.cpu().numpy()
         clock.mark("vae_decode")
         self.last_stage_seconds = clock.seconds

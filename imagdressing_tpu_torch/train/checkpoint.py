@@ -16,6 +16,14 @@ mid-save leaves no directory that `latest_step` would pick. Read with
 `save` copies the state to host memory before it returns (the trainer
 updates its modules in place, so a copy taken later would hold a later
 step's weights); with `async_save` only the file write runs on a thread.
+
+Over several ranks every rank calls `save`, `wait` and `restore` in the
+same order: `save` gathers a split state (ZeRO-2 shards, TP slices) into
+the whole host form, so that the files are those one device writes, and
+only rank 0 writes them; `wait` ends with a barrier over the group, so no
+rank reads a checkpoint that rank 0 is still writing. `restore` loads the
+whole form and each rank keeps its part: a run saved over 2 ranks resumes
+on 1, and `apps.dress --trained_ckpt` reads it.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from imagdressing_tpu_torch.core import mesh as mesh_lib
 from imagdressing_tpu_torch.train.step import (
     TrainState,
     state_from_host,
@@ -69,10 +78,14 @@ def read_checkpoint(directory: str, step: int
 
 class CheckpointManager:
     def __init__(self, directory: str, *, max_to_keep: int = 3,
-                 async_save: bool = True):
+                 async_save: bool = True, rank: int = 0, group=None):
+        """`rank`: this process's global rank (only 0 writes); `group`:
+        the ranks that save together (None: this process alone)."""
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self.async_save = async_save
+        self.rank = rank
+        self.group = group
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
 
@@ -84,6 +97,8 @@ class CheckpointManager:
         if step in saved_steps(self.directory):
             return False
         host = state_to_host(state)
+        if self.rank != 0:
+            return True
         if self.async_save:
             self._thread = threading.Thread(
                 target=self._write_guarded, args=(step, host, extra),
@@ -128,10 +143,12 @@ class CheckpointManager:
         return state_from_host(state_template, host), extra
 
     def wait(self) -> None:
-        """Block until the pending write is on disk; re-raise its error."""
+        """Block until the pending write is on disk (on every rank of the
+        group); re-raise its error."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        mesh_lib.barrier(self.group)
         if self._error is not None:
             err, self._error = self._error, None
             raise err

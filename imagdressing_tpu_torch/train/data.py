@@ -289,3 +289,23 @@ def data_iterator(
     finally:
         stop.set()
         pool.shutdown(wait=False, cancel_futures=True)
+
+
+def shard_host_batch(mesh, host_batch: Dict[str, np.ndarray]
+                     ) -> Dict[str, torch.Tensor]:
+    """This rank's rows of the global batch, on its device (the JAX
+    package's `shard_host_batch`, which assembles each process's rows into
+    one data-sharded array). Each rank reads its own rows from
+    `data_iterator(..., process_index=mesh.data_rank,
+    process_count=mesh.data)`; here they become tensors on `mesh.device`,
+    copied from pinned host memory without a wait on a card, the token ids
+    as int64."""
+    out = {}
+    for k, v in host_batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if k == "text_ids":
+            t = t.long()
+        if mesh.device.type == "cuda":
+            t = t.pin_memory().to(mesh.device, non_blocking=True)
+        out[k] = t
+    return out

@@ -18,8 +18,9 @@ poly learning rate):
 `ParsingDataset` reads LIP/ATR-style folders without OpenCV: images in BGR
 (PIL's decode) resized by `ops.resize.cv2_resize_linear_u8`, labels read as
 `cv2.IMREAD_GRAYSCALE` reads them and resized by `cv2_resize_nearest`.
-The training runs on one device; the sharded step waits for the multi-GPU
-port.
+`shard_parsing_train_step` runs the step over a data group (the JAX
+package's shard_map step): each rank its rows, the statistics and the
+loss's normalisation synced, the gradients averaged.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import numpy as np
 import torch
 
 from imagdressing_tpu_torch.apps.image_utils import read_image
+from imagdressing_tpu_torch.core import mesh as mesh_lib
 from imagdressing_tpu_torch.ops.resize import (
     cv2_resize_linear_u8,
     cv2_resize_nearest,
@@ -100,33 +102,70 @@ def _update_running_stats(collected: Sequence, momentum: float) -> None:
 
 
 def make_parsing_train_step(cfg: ParsingTrainConfig, net: schp.SCHP,
-                            optimizer: torch.optim.Optimizer):
+                            optimizer: torch.optim.Optimizer, group=None):
     """-> step(step_idx, batch) -> {"loss", "lr"}: one forward in train
     mode, the loss, the backward, the optimizer step at the step's lr, the
     running-statistics EMA. batch: {"image": (B, H, W, 3) normalized
     float32, "label" and "edge": (B, H, W) integers}, tensors on the net's
-    device. The net's parameters must require gradients."""
+    device. The net's parameters must require gradients. With a process
+    `group` (`shard_parsing_train_step`) the batch is this rank's rows."""
     schedule = lr_schedule(cfg)
+    # the ABNs' weight and bias gradients come out of their synced backward
+    # already summed over the group
+    synced = {id(p) for m in net.modules() if isinstance(m, schp.ABN)
+              for p in (m.weight, m.bias)}
 
     def step(step_idx: int, batch: Dict[str, torch.Tensor]
              ) -> Dict[str, torch.Tensor]:
-        ctx = schp.BNTrainCtx()
+        ctx = schp.BNTrainCtx(group=group)
         fusion, edge = net(batch["image"], ctx)
         lh, lw = fusion.shape[1:3]
         loss = parsing_losses.schp_criterion(
             fusion, edge, _downsample_labels(batch["label"], lh, lw),
             _downsample_labels(batch["edge"], lh, lw),
-            lovasz_weight=cfg.lovasz_weight, edge_weight=cfg.edge_weight)
+            lovasz_weight=cfg.lovasz_weight, edge_weight=cfg.edge_weight,
+            group=group)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if group is not None:
+            # the gradient of the group's mean loss: each rank's own
+            # gradients averaged, the synced sums divided by the group size
+            with torch.no_grad():
+                own = [p.grad for p in net.parameters()
+                       if p.grad is not None and id(p) not in synced]
+                flat = mesh_lib.pmean(
+                    torch.cat([g.reshape(-1) for g in own]), group)
+                torch._foreach_copy_(own, [
+                    x.view_as(g) for x, g in zip(
+                        flat.split([g.numel() for g in own]), own)])
+                torch._foreach_div_(
+                    [p.grad for p in net.parameters()
+                     if p.grad is not None and id(p) in synced],
+                    mesh_lib.group_size(group))
+            loss = mesh_lib.pmean(loss.detach(), group)
         lr = schedule(step_idx)
-        for group in optimizer.param_groups:
-            group["lr"] = lr
+        for param_group in optimizer.param_groups:
+            param_group["lr"] = lr
         optimizer.step()
         _update_running_stats(ctx.stats, cfg.bn_momentum)
         return {"loss": loss.detach(), "lr": lr}
 
     return step
+
+
+def shard_parsing_train_step(cfg: ParsingTrainConfig, net: schp.SCHP,
+                             optimizer: torch.optim.Optimizer,
+                             mesh: mesh_lib.Mesh):
+    """The step over the mesh's data group (the JAX package's
+    `shard_parsing_train_step`): the parameters replicated (every rank
+    starts from the same weights), the batch split by rank, the ABNs'
+    statistics synced through `abn_train(group=...)`, the cross-entropy
+    normalised over the group's pixels, the gradients all-reduced as a
+    mean (the ABNs' weight and bias gradients, which their synced backward
+    sums over the group, divided by its size), the loss averaged. ->
+    step(step_idx, this rank's rows)."""
+    return make_parsing_train_step(cfg, net, optimizer,
+                                   group=mesh.data_group)
 
 
 def edges_from_labels(labels: np.ndarray) -> np.ndarray:

@@ -31,8 +31,18 @@ Differences from the JAX package, by design:
   * The optimizer is a PyTorch reimplementation of the optax chain
     `apply_if_finite(chain(clip_by_global_norm, adamw), 100)` (wrapped in
     `MultiSteps` for accumulation), state as lists of tensors.
-  * The multi-chip steps (`shard_train_step`, `tp_train_step`) are not
-    ported.
+  * The multi-device steps run one process per rank over
+    `torch.distributed` (`core/mesh.py`): `shard_train_step` (ZeRO-2 over
+    the data group) and `tp_train_step` (tensor parallelism over the model
+    group, `core/tp.py`, with data parallelism beside it).
+
+ZeRO-2 splits the port's flat optimizer state: rank r of the data group
+owns the r-th contiguous 1/N of the flat vector (padded to a multiple of N)
+of the moments, the accumulation buffer and the fp32 masters' update. The
+JAX package splits each leaf along its largest divisible dimension
+(`core/mesh.py:zero2_axis`) instead. AdamW works element by element, so both
+layouts compute the same update; only the order of the global norm's sum
+differs.
 """
 
 from __future__ import annotations
@@ -44,6 +54,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from imagdressing_tpu_torch.core import mesh as mesh_lib
+from imagdressing_tpu_torch.core import tp as tp_lib
 from imagdressing_tpu_torch.core.config import SchedulerConfig, TrainConfig
 from imagdressing_tpu_torch.models.conditioning import Conditioning
 from imagdressing_tpu_torch.pipelines.dressing import (
@@ -163,42 +175,59 @@ class Optimizer:
                ) -> Tuple[List[torch.Tensor], OptState]:
         """-> (updates to add to the params, each shaped like its param;
         new state)."""
-        g = _flat(grads)
-        k = self.cfg.gradient_accumulation_steps
-        if k <= 1:
-            u, state = self._if_finite(g, state, params)
-        else:
-            n = state.mini_step
-            acc = state.acc_grads + (g - state.acc_grads) / (n + 1)
-            if n != k - 1:
-                u = torch.zeros_like(g)
-                state = dataclasses.replace(state, mini_step=n + 1,
-                                            acc_grads=acc)
-            else:
-                u, new = self._if_finite(acc, state, params)
-                state = dataclasses.replace(
-                    new, mini_step=0, gradient_step=state.gradient_step + 1,
-                    acc_grads=torch.zeros_like(acc))
+        u, state = self.update_flat(_flat(grads), state,
+                                    lambda: _flat(params))
         parts = u.split([p.numel() for p in params])
         return [x.view(p.shape) for x, p in zip(parts, params)], state
 
-    def _if_finite(self, g: torch.Tensor, state: OptState, params):
-        finite = bool(torch.isfinite(g).all())
+    @torch.no_grad()
+    def update_flat(self, g: torch.Tensor, state: OptState, params, *,
+                    clip: bool = True,
+                    norm: Optional[Callable[[torch.Tensor], torch.Tensor]]
+                    = None) -> Tuple[torch.Tensor, OptState]:
+        """`update` on flat vectors: g the gradient, params the fp32
+        masters (or a function that returns them, called only when an
+        update is applied) -> (flat update, new state). `clip=False` when
+        the caller clipped g already. `norm(x)`, where given, is the global
+        norm of a vector laid out as g (over every rank's part); it then
+        decides the clip and, by its finiteness, the non-finite skip, so
+        that every rank decides alike."""
+        k = self.cfg.gradient_accumulation_steps
+        if k <= 1:
+            return self._if_finite(g, state, params, clip, norm)
+        n = state.mini_step
+        acc = state.acc_grads + (g - state.acc_grads) / (n + 1)
+        if n != k - 1:
+            return torch.zeros_like(g), dataclasses.replace(
+                state, mini_step=n + 1, acc_grads=acc)
+        u, new = self._if_finite(acc, state, params, clip, norm)
+        return u, dataclasses.replace(
+            new, mini_step=0, gradient_step=state.gradient_step + 1,
+            acc_grads=torch.zeros_like(acc))
+
+    def _if_finite(self, g: torch.Tensor, state: OptState, params, clip,
+                   norm):
+        g_norm = None if norm is None else norm(g)
+        finite = bool(torch.isfinite(g).all() if g_norm is None
+                      else torch.isfinite(g_norm))
         notfinite = 0 if finite else state.notfinite_count + 1
         if finite or notfinite > self.max_consecutive_errors:
-            u, state = self._clip_adamw(g, state, _flat(params))
+            if clip:
+                g_norm = torch.linalg.vector_norm(g) if g_norm is None \
+                    else g_norm
+                if not bool(g_norm < self.cfg.max_grad_norm):
+                    g.div_(g_norm).mul_(self.cfg.max_grad_norm)
+            u, state = self._adamw(g, state,
+                                   params() if callable(params) else params)
         else:
             u = torch.zeros_like(g)
         return u, dataclasses.replace(
             state, notfinite_count=notfinite, last_finite=finite,
             total_notfinite=state.total_notfinite + (not finite))
 
-    def _clip_adamw(self, g: torch.Tensor, state: OptState, p: torch.Tensor):
+    def _adamw(self, g: torch.Tensor, state: OptState, p: torch.Tensor):
         cfg = self.cfg
         b1, b2 = cfg.adam_b1, cfg.adam_b2
-        g_norm = torch.linalg.vector_norm(g)
-        if not bool(g_norm < cfg.max_grad_norm):
-            g.div_(g_norm).mul_(cfg.max_grad_norm)
         count = state.count + 1
         # as optax under XLA: decay**count in fp32; the stored (mu_dtype)
         # moment is multiplied by the decay rounded to that dtype (0.9 ->
@@ -364,6 +393,9 @@ class TrainState:
     step: int
     params: Modules  # trainable: {ref_unet, ref_adapters, resampler}
     opt_state: OptState
+    # how params and opt_state are split over ranks (`ZeroLayout`,
+    # `TPLayout`); None: whole, on one device
+    layout: Optional[Any] = None
 
 
 def init_train_state(models: DressingModels, cfg: TrainConfig
@@ -383,16 +415,33 @@ def _host_copy(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to("cpu", copy=True)
 
 
+OPT_TENSORS = ("mu", "nu", "acc_grads")
+
+
+def _map_opt(opt: OptState, fn: Callable[[torch.Tensor], torch.Tensor]
+             ) -> OptState:
+    """The state with fn applied to its flat vectors."""
+    return dataclasses.replace(opt, **{
+        f: fn(getattr(opt, f)) for f in OPT_TENSORS
+        if getattr(opt, f) is not None})
+
+
 def state_to_host(state: TrainState) -> Dict[str, Any]:
     """The state as CPU tensors and Python numbers, copied (the trainer
     updates its modules in place): {"step", "params": {name: state dict of
     the fp32 masters}, "opt_state": {OptState field: value}}. The form
-    `train.checkpoint` writes."""
-    params = {k: {n: _host_copy(t)
-                  for n, t in state.params[k].state_dict().items()}
-              for k in TRAINABLE_KEYS}
-    opt = {f.name: getattr(state.opt_state, f.name)
-           for f in dataclasses.fields(OptState)}
+    `train.checkpoint` writes. The same whatever the layout: a split state
+    is gathered first (a collective: every rank calls it)."""
+    lay = state.layout
+    if lay is None:
+        params = {k: state.params[k].state_dict() for k in TRAINABLE_KEYS}
+        opt = state.opt_state
+    else:
+        params = lay.host_params(state.params)
+        opt = _map_opt(state.opt_state, lay.host_flat)
+    params = {k: {n: _host_copy(t) for n, t in sd.items()}
+              for k, sd in params.items()}
+    opt = {f.name: getattr(opt, f.name) for f in dataclasses.fields(OptState)}
     opt = {k: _host_copy(v) if torch.is_tensor(v) else v
            for k, v in opt.items()}
     return {"step": int(state.step), "params": params, "opt_state": opt}
@@ -403,13 +452,21 @@ def state_from_host(template: TrainState, host: Dict[str, Any]
                     ) -> TrainState:
     """`state_to_host`'s form loaded into the template's modules (in place,
     exact) and onto its optimizer state's device; the template's tensors
-    fix each shape and dtype."""
+    fix each shape and dtype. A split template takes its rank's part (no
+    collective: each rank reads the whole form)."""
+    lay = template.layout
     for k in TRAINABLE_KEYS:
-        template.params[k].load_state_dict(host["params"][k], strict=True)
+        sd = host["params"][k]
+        if lay is not None:
+            sd = lay.local_state_dict(k, sd)
+        template.params[k].load_state_dict(sd, strict=True)
     opt = {}
     for f in dataclasses.fields(OptState):
         want, got = getattr(template.opt_state, f.name), \
             host["opt_state"][f.name]
+        if lay is not None and torch.is_tensor(got) \
+                and f.name in OPT_TENSORS:
+            got = lay.local_flat(got)
         if torch.is_tensor(want) or torch.is_tensor(got):
             if not (torch.is_tensor(want) and torch.is_tensor(got)) \
                     or want.shape != got.shape or want.dtype != got.dtype:
@@ -422,7 +479,31 @@ def state_from_host(template: TrainState, host: Dict[str, Any]
             got = got.to(want.device, copy=True)
         opt[f.name] = got
     return TrainState(step=int(host["step"]), params=template.params,
-                      opt_state=OptState(**opt))
+                      opt_state=OptState(**opt), layout=lay)
+
+
+def _draws_fn(models: DressingModels, sched_cfg: Optional[SchedulerConfig]
+              ) -> Callable:
+    """draws(seed, step, ids, batch): `make_draws` at the batch's latent
+    size, on its device."""
+    f = 2 ** (len(models.vae_cfg.block_out_channels) - 1)
+    num_t = (sched_cfg or ddim.TRAIN_SCHEDULER).num_train_timesteps
+
+    def draws(seed: int, step: int, ids: Sequence[int], batch: Batch):
+        _, h, w, _ = batch["person_image"].shape
+        return make_draws(seed, step, ids,
+                          (h // f, w // f, models.vae_cfg.latent_channels),
+                          num_t, batch["person_image"].device)
+
+    return draws
+
+
+def _grads(loss: torch.Tensor, params: Sequence[torch.Tensor]
+           ) -> List[torch.Tensor]:
+    grads = torch.autograd.grad(loss, list(params), allow_unused=True)
+    # leaves the loss does not reach (the garment UNet's output head)
+    return [torch.zeros_like(p) if g is None else g
+            for g, p in zip(grads, params)]
 
 
 def make_train_step(models: DressingModels, cfg: TrainConfig, tx: Optimizer,
@@ -432,23 +513,16 @@ def make_train_step(models: DressingModels, cfg: TrainConfig, tx: Optimizer,
     (seed, state.step, example index) unless given. The trainable modules
     are updated in place; `grad_norm` is that of the raw gradients."""
     loss_from_draws = make_loss_fn(models, cfg, sched_cfg)
-    f = 2 ** (len(models.vae_cfg.block_out_channels) - 1)
-    num_t = (sched_cfg or ddim.TRAIN_SCHEDULER).num_train_timesteps
+    draws_fn = _draws_fn(models, sched_cfg)
 
     def train_step(state: TrainState, frozen: Modules, batch: Batch,
                    seed: int, draws: Optional[Draws] = None):
-        b, h, w, _ = batch["person_image"].shape
         if draws is None:
-            draws = make_draws(seed, state.step, range(b),
-                               (h // f, w // f,
-                                models.vae_cfg.latent_channels),
-                               num_t, batch["person_image"].device)
+            draws = draws_fn(seed, state.step,
+                             range(batch["person_image"].shape[0]), batch)
         params = trainable_parameters(state.params)
         loss = loss_from_draws(state.params, frozen, batch, draws)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        # leaves the loss does not reach (the garment UNet's output head)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(grads, params)]
+        grads = _grads(loss, params)
         gnorm = global_norm(grads)
         updates, opt_state = tx.update(grads, state.opt_state, params)
         apply_updates(params, updates)
@@ -457,3 +531,273 @@ def make_train_step(models: DressingModels, cfg: TrainConfig, tx: Optimizer,
                 {"loss": loss.detach(), "grad_norm": gnorm})
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# Multi-device steps
+# ---------------------------------------------------------------------------
+
+
+class ZeroLayout:
+    """ZeRO-2 over the data group: the trainables replicated; of each flat
+    optimizer vector (n elements, padded with zeros to N * shard) rank r
+    holds elements [r * shard, (r + 1) * shard)."""
+
+    def __init__(self, n: int, mesh: mesh_lib.Mesh):
+        self.n, self.world, self.rank = n, mesh.data, mesh.data_rank
+        self.group = mesh.data_group
+        self.shard = -(-n // self.world)
+        self.lo = min(self.rank * self.shard, n)
+        self.hi = min(self.lo + self.shard, n)
+
+    def pad(self, flat: torch.Tensor) -> torch.Tensor:
+        return torch.nn.functional.pad(flat,
+                                       (0, self.world * self.shard - self.n))
+
+    def local_flat(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's part of a whole flat vector (a copy)."""
+        if full.numel() != self.n:
+            raise ValueError(f"a flat vector of {full.numel()} elements, "
+                             f"the trainables have {self.n}")
+        part = full.reshape(-1)[self.lo:self.hi]
+        out = part.new_zeros(self.shard)
+        out[:part.numel()] = part
+        return out
+
+    def local_slice(self, tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Elements [lo, hi) of the tensors' flat fp32 concatenation,
+        padded to `shard`, without building the whole vector."""
+        out, at = [], 0
+        for t in tensors:
+            a, b = max(self.lo - at, 0), min(self.hi - at, t.numel())
+            if a < b:
+                out.append(t.detach().reshape(-1)[a:b].float())
+            at += t.numel()
+        flat = torch.cat(out) if out else tensors[0].new_zeros(0).float()
+        return torch.nn.functional.pad(flat, (0, self.shard - flat.numel()))
+
+    def host_flat(self, local: torch.Tensor) -> torch.Tensor:
+        return mesh_lib.all_gather(local, self.group)[:self.n]
+
+    def host_params(self, params: Modules) -> Dict[str, Dict[str, Any]]:
+        return {k: params[k].state_dict() for k in TRAINABLE_KEYS}
+
+    def local_state_dict(self, model: str, sd: Dict[str, torch.Tensor]):
+        return sd
+
+
+class TPLayout:
+    """Tensor parallelism over the model group (`core/tp.py`): the split
+    projections hold this rank's slice, and so do their moments. The local
+    flat vectors hold the replicated parameters first, then this rank's
+    slices, each in `trainable_parameters` order; whole vectors (the host
+    form) are in `trainable_parameters` order of the whole parameters."""
+
+    def __init__(self, params: Modules, mesh: mesh_lib.Mesh):
+        """`params`: the trainables before the split."""
+        self.rank, self.size = mesh.model_rank, mesh.model
+        self.group = mesh.model_group
+        # (model, name, whole shape, split kind), `trainable_parameters`
+        # order
+        self.entries = [
+            (k, name, tuple(p.shape),
+             tp_lib.tp_kind(name) if k in tp_lib.TP_MODELS else None)
+            for k in TRAINABLE_KEYS
+            for name, p in params[k].named_parameters()]
+        self.order = ([i for i, e in enumerate(self.entries) if e[3] is None]
+                      + [i for i, e in enumerate(self.entries)
+                         if e[3] is not None])
+        self.n = sum(int(np.prod(e[2])) for e in self.entries)
+        self.n_replicated = sum(int(np.prod(e[2])) for e in self.entries
+                                if e[3] is None)
+        self.n_replicated_params = sum(e[3] is None for e in self.entries)
+
+    def _local_numel(self, entry) -> int:
+        n = int(np.prod(entry[2]))
+        return n if entry[3] is None else n // self.size
+
+    def local_params(self, params: Modules) -> List[torch.Tensor]:
+        named = {(k, n): p for k in TRAINABLE_KEYS
+                 for n, p in params[k].named_parameters()}
+        return [named[self.entries[i][:2]] for i in self.order]
+
+    def host_params(self, params: Modules) -> Dict[str, Dict[str, Any]]:
+        out: Dict[str, Dict[str, Any]] = {}
+        for k in TRAINABLE_KEYS:
+            out[k] = {}
+            for name, t in params[k].state_dict().items():
+                kind = tp_lib.tp_kind(name) if k in tp_lib.TP_MODELS \
+                    else None
+                out[k][name] = tp_lib.gather_tensor(kind, t, self.group)
+        return out
+
+    def local_state_dict(self, model: str, sd: Dict[str, torch.Tensor]):
+        if model not in tp_lib.TP_MODELS:
+            return sd
+        return {n: tp_lib.shard_tensor(tp_lib.tp_kind(n), t, self.rank,
+                                       self.size).contiguous()
+                for n, t in sd.items()}
+
+    def host_flat(self, local: torch.Tensor) -> torch.Tensor:
+        parts = local.split([self._local_numel(self.entries[i])
+                             for i in self.order])
+        whole: List[Optional[torch.Tensor]] = [None] * len(self.entries)
+        for i, part in zip(self.order, parts):
+            _, _, shape, kind = self.entries[i]
+            local_shape = tp_lib.shard_tensor(
+                kind, torch.empty(shape, device="meta"), self.rank,
+                self.size).shape
+            whole[i] = tp_lib.gather_tensor(
+                kind, part.view(local_shape), self.group).reshape(-1)
+        return torch.cat(whole)
+
+    def local_flat(self, full: torch.Tensor) -> torch.Tensor:
+        if full.numel() != self.n:
+            raise ValueError(f"a flat vector of {full.numel()} elements, "
+                             f"the trainables have {self.n}")
+        parts = full.reshape(-1).split([int(np.prod(e[2]))
+                                        for e in self.entries])
+        return torch.cat([
+            tp_lib.shard_tensor(self.entries[i][3],
+                                parts[i].view(self.entries[i][2]),
+                                self.rank, self.size).reshape(-1)
+            for i in self.order])
+
+
+def shard_train_step(models: DressingModels, cfg: TrainConfig,
+                     tx: Optimizer, mesh: mesh_lib.Mesh, state: TrainState,
+                     frozen: Modules,
+                     sched_cfg: Optional[SchedulerConfig] = None):
+    """ZeRO-2 over the mesh's data group (the reference's DeepSpeed
+    zero_stage2_config.json:12-20), with its communication made explicit
+    as in the JAX package's `shard_train_step`:
+
+      1. each rank computes the gradients of its rows (trainables
+         replicated); an example's draws come from its global index
+         (data rank * local batch + i), so the global batch draws what one
+         device would;
+      2. the flat gradient is reduce-scattered as a mean: each rank keeps
+         its 1/N;
+      3. the global norm is sqrt of the sum over ranks of each shard's sum
+         of squares, the loss is averaged over the group;
+      4. a non-finite norm skips the step on every rank: the trainables and
+         the optimizer state stay as they were (the step count advances);
+      5. otherwise the shard is clipped by the global norm and AdamW updates
+         this rank's shard of the fp32 masters, mu and nu (the optimizer's
+         own clip is off: it would see one shard only);
+      6. the updated masters are all-gathered into every rank's modules.
+
+    `state` is the whole state of `init_train_state` (or one restored);
+    returns (step, sharded_state, frozen): step(state, frozen, batch, seed,
+    draws=None) takes this rank's rows of the global batch (and their
+    draws) and returns (state, {"loss", "grad_norm"}), both global. Every
+    rank of the group must call it, in the same order."""
+    if mesh.model != 1:
+        raise ValueError("shard_train_step splits the data only; "
+                         "tp_train_step splits the model")
+    layout = ZeroLayout(
+        sum(p.numel() for p in trainable_parameters(state.params)), mesh)
+    sharded = TrainState(step=state.step, params=state.params,
+                         opt_state=_map_opt(state.opt_state,
+                                            layout.local_flat),
+                         layout=layout)
+    loss_from_draws = make_loss_fn(models, cfg, sched_cfg)
+    draws_fn = _draws_fn(models, sched_cfg)
+    group = mesh.data_group
+
+    def step(state: TrainState, frozen: Modules, batch: Batch, seed: int,
+             draws: Optional[Draws] = None):
+        b = batch["person_image"].shape[0]
+        if draws is None:
+            lo = mesh.data_rank * b
+            draws = draws_fn(seed, state.step, range(lo, lo + b), batch)
+        params = trainable_parameters(state.params)
+        loss = loss_from_draws(state.params, frozen, batch, draws)
+        grads = _grads(loss, params)
+        with torch.no_grad():
+            g = mesh_lib.reduce_scatter(layout.pad(_flat(grads)), group)
+            del grads
+            g.div_(mesh.data)
+            gnorm = torch.sqrt(mesh_lib.psum(torch.sum(g * g), group))
+            metrics = {"loss": mesh_lib.pmean(loss.detach(), group),
+                       "grad_norm": gnorm}
+            after = dataclasses.replace(state, step=state.step + 1)
+            if not bool(torch.isfinite(gnorm)):
+                return after, metrics
+            if not bool(gnorm < cfg.max_grad_norm):
+                g.div_(gnorm).mul_(cfg.max_grad_norm)
+            masters = layout.local_slice(params)
+            u, opt_state = tx.update_flat(g, state.opt_state, masters,
+                                          clip=False)
+            whole = layout.host_flat(masters + u)
+            torch._foreach_copy_(params, [
+                x.view_as(p) for x, p in zip(
+                    whole.split([p.numel() for p in params]), params)])
+        return dataclasses.replace(after, opt_state=opt_state), metrics
+
+    return step, sharded, frozen
+
+
+def tp_train_step(models: DressingModels, cfg: TrainConfig, tx: Optimizer,
+                  mesh: mesh_lib.Mesh, state: TrainState, frozen: Modules,
+                  sched_cfg: Optional[SchedulerConfig] = None):
+    """Tensor-parallel (+ data-parallel) training over a (data, model)
+    mesh, as the JAX package's `tp_train_step`: both UNets (and the garment
+    adapters) split by `core/tp.py` over the model group, in place, the
+    batch split over the data group. The moments split like their
+    parameters. The split leaves' gradients are averaged over the data
+    group; the replicated leaves' over every rank (the model group's
+    copies are equal), so they stay equal everywhere. The global norm sums
+    the split leaves' squares over the model group; the clip and the
+    non-finite skip act on it, with the single-device step's semantics
+    (the skip counts, as optax's `apply_if_finite`). Each rank's kernels
+    run its heads (the JAX package falls back to XLA's flash backward
+    under TP; the port keeps K5 / K6a / K6b).
+
+    `state` is the whole state of `init_train_state`; returns (step,
+    sharded_state, frozen) as `shard_train_step`."""
+    layout = TPLayout(state.params, mesh)
+    opt_state = _map_opt(state.opt_state, layout.local_flat)
+    for module in (state.params["ref_unet"], state.params["ref_adapters"],
+                   frozen["unet"]):
+        tp_lib.split_module(module, mesh.model_rank, mesh.model,
+                            mesh.model_group)
+    if models.unet_cfg.attention_num_heads % mesh.model:
+        raise ValueError(f"{models.unet_cfg.attention_num_heads} heads do "
+                         f"not split {mesh.model} ways")
+    sharded = TrainState(step=state.step, params=state.params,
+                         opt_state=opt_state, layout=layout)
+    loss_from_draws = make_loss_fn(models, cfg, sched_cfg)
+    draws_fn = _draws_fn(models, sched_cfg)
+    n_rep, k_rep = layout.n_replicated, layout.n_replicated_params
+
+    def norm(x: torch.Tensor) -> torch.Tensor:
+        rep, split = x[:n_rep], x[n_rep:]
+        return torch.sqrt(torch.sum(rep * rep) + mesh_lib.psum(
+            torch.sum(split * split), mesh.model_group))
+
+    def step(state: TrainState, frozen: Modules, batch: Batch, seed: int,
+             draws: Optional[Draws] = None):
+        b = batch["person_image"].shape[0]
+        if draws is None:
+            lo = mesh.data_rank * b
+            draws = draws_fn(seed, state.step, range(lo, lo + b), batch)
+        params = layout.local_params(state.params)
+        loss = loss_from_draws(state.params, frozen, batch, draws)
+        grads = _grads(loss, params)
+        with torch.no_grad():
+            g = torch.cat([
+                mesh_lib.pmean(_flat(grads[:k_rep]), mesh.world_group),
+                mesh_lib.pmean(_flat(grads[k_rep:]), mesh.data_group)])
+            del grads
+            gnorm = norm(g)
+            u, opt_state = tx.update_flat(g, state.opt_state,
+                                          lambda: _flat(params), norm=norm)
+            apply_updates(params, [x.view_as(p) for x, p in zip(
+                u.split([p.numel() for p in params]), params)])
+        return (TrainState(step=state.step + 1, params=state.params,
+                           opt_state=opt_state, layout=layout),
+                {"loss": mesh_lib.pmean(loss.detach(), mesh.data_group),
+                 "grad_norm": gnorm})
+
+    return step, sharded, frozen

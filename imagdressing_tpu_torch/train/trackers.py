@@ -235,12 +235,27 @@ class CometTracker:
         self._exp.end()
 
 
-def make_tracker(report_to: str, output_dir: str):
+class NullTracker:
+    """What a rank other than 0 logs to: nothing."""
+
+    def log(self, step: int, metrics: Dict[str, float]) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def make_tracker(report_to: str, output_dir: str, *, rank: int = 0):
     """The reference's --report_to seat: 'jsonl' (default),
     'tensorboard', 'all' (both), plus 'wandb'/'comet' when their packages
     are installed (offline-mode adapters). Without them the error points
     at PARITY.md ("tracker sinks"), which records tensorboard+jsonl as the
-    supported sinks."""
+    supported sinks. Only rank 0 writes: any other rank gets a
+    `NullTracker` (its metrics are the same global numbers)."""
+    if report_to not in ("jsonl", "tensorboard", "all", "wandb", "comet"):
+        raise ValueError(f"unknown --report_to {report_to!r}")
+    if rank != 0:
+        return NullTracker()
     jsonl = JsonlTracker(os.path.join(output_dir, "metrics.jsonl"))
     if report_to == "jsonl":
         return jsonl

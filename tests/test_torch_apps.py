@@ -613,10 +613,11 @@ def test_serve_main_needs_a_card_or_cpu_and_one_device(tiny_files):
     args = ["--base_dir", paths["base_dir"], "--vae_path", paths["vae_path"],
             "--image_encoder_path", paths["image_encoder_path"],
             "--model_ckpt", paths["model_ckpt"]]
-    with pytest.raises(SystemExit, match="multi-GPU"):
-        serve.main(args + ["--data_parallel", "2"])
-    with pytest.raises(SystemExit, match="multi-GPU"):
-        serve.main(args + ["--tensor_parallel", "2"])
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises(SystemExit, match=f"needs {n + 2} GPUs; {n} visible"):
+        serve.main(args + ["--data_parallel", str(n + 2)])
+    with pytest.raises(SystemExit, match=f"needs {n + 2} GPUs; {n} visible"):
+        serve.main(args + ["--tensor_parallel", str(n + 2)])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             serve.main(args)
@@ -730,7 +731,7 @@ def test_dress_cli_pose_cross_product(cli, tmp_path):
 def test_dress_cli_refusals(cli, tmp_path):
     """Without --device cpu on a host without a card, the CLI raises; a
     --trained_ckpt directory without checkpoints raises FileNotFoundError;
-    the option the port has not got yet raises with its ROADMAP pointer."""
+    CPU ranks need --allow_cpu_mesh."""
     run, _, _ = cli
     cloth = tmp_path / "shirt.png"
     cloth.write_bytes(pil_png(garment(0, 64, 64)))
@@ -741,7 +742,7 @@ def test_dress_cli_refusals(cli, tmp_path):
     with pytest.raises(FileNotFoundError, match="no training checkpoint"):
         run(base + ["--trained_ckpt", str(tmp_path / "ckpt"), "--device",
                     "cpu"])
-    with pytest.raises(SystemExit, match="multi-GPU"):
+    with pytest.raises(SystemExit, match="allow_cpu_mesh"):
         run(base + ["--data_parallel", "2", "--device", "cpu"])
 
 

@@ -2,9 +2,11 @@
 JAX package.
 
 One JAX small stack (`DressingModels.init_random(PRNGKey(0), small=True)`,
-the stack every golden here was recorded with) is built once and converted
-with `params_from_jax`. The port then replays `ref_synthetic_tiny.npz` stage
-by stage, as `tools/record_reference.compute_with_stack` does, runs its
+the stack every golden here was recorded with; its parameters read from
+`tests/goldens/jax_small_stack.npz`, see `tests/test_torch_presets.py`) is
+converted once with `params_from_jax`. The port then replays
+`ref_synthetic_tiny.npz` stage by stage, as
+`tools/record_reference.compute_with_stack` does, runs its
 `DressingPipeline` on the recipe of `test_tiny_config_seed_fixed_regression`,
 and replays `torch_train_step_tiny.npz`: the JAX package's jitted
 `make_train_step` on the recipe of `tests/test_train.py` (batch of 2 at
@@ -77,10 +79,26 @@ TRAIN_MODELS = ("ref_unet", "ref_adapters", "resampler")
 def port():
     n = torch.get_num_threads()
     torch.set_num_threads(2)
-    jm = JaxModels.init_random(jax.random.PRNGKey(0), small=True)
-    params = jax.tree.map(np.asarray, jm.params)
-    yield DressingModels.from_jax_params(params, small=True, device="cpu")
+    yield DressingModels.from_jax_params(_small_params(), small=True,
+                                         device="cpu")
     torch.set_num_threads(n)
+
+
+def _small_params():
+    """`JaxModels.init_random(PRNGKey(0), small=True).params` as numpy: the
+    tree from tracing it (no compile), the values from
+    `jax_small_stack.npz` (that stack's `basic` models draw first, so with
+    or without the ControlNet and the IP adapters they are the same)."""
+    def key(path):
+        return "/".join(str(getattr(p, "key", getattr(p, "idx", p)))
+                        for p in path)
+
+    paths, tree = jax.tree_util.tree_flatten_with_path(jax.eval_shape(
+        lambda k: JaxModels.init_random(k, small=True).params,
+        jax.random.PRNGKey(0)))
+    golden = np.load(os.path.join(GOLDENS, "jax_small_stack.npz"))
+    return jax.tree_util.tree_unflatten(tree, [golden[key(p)]
+                                               for p, _ in paths])
 
 
 def _t(a, dtype=torch.float32):

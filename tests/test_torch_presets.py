@@ -19,6 +19,14 @@ on the CPU (each kernel's plain version).
 Re-record the presets golden (JAX on the CPU, a few minutes of compile):
 
     JAX_PLATFORMS=cpu python tests/test_torch_presets.py
+
+The stack's parameters come from `tests/goldens/jax_small_stack.npz`, what
+`init_random` gives them (its eager calls compile a few hundred small XLA
+programs, ~40 s in a fresh process), laid into the tree that tracing
+`init_random` gives (`jax.eval_shape`: no compile); `test_torch_pipeline.py`
+reads the same file. Re-record it with `JAX_PLATFORMS=cpu python
+tests/test_torch_presets.py stack`; `test_small_stack_golden_is_current`
+(slow) checks it against a live `init_random`.
 """
 
 import copy
@@ -58,6 +66,7 @@ from imagdressing_tpu_torch.samplers import ddim, dpm, unipc
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 PRESETS_GOLDEN = os.path.join(GOLDENS, "torch_presets_tiny.npz")
+STACK_GOLDEN = os.path.join(GOLDENS, "jax_small_stack.npz")
 ATOL, RTOL = 5e-3, 1e-3
 # the golden's cases: (preset, preset overrides, call arguments), 64x64,
 # 4 steps
@@ -93,11 +102,44 @@ def _perturb(tree, seed=9):
         tree)
 
 
+def _path_key(path) -> str:
+    return "/".join(str(getattr(p, "key", getattr(p, "idx", p)))
+                    for p in path)
+
+
+def _init_small(key):
+    return JaxModels.init_random(key, small=True, with_controlnet=True,
+                                 with_ipa=True)
+
+
+def record_small_stack():
+    """`_init_small(PRNGKey(0))`'s parameters, keyed by tree path."""
+    params = _init_small(jax.random.PRNGKey(0)).params
+    return {_path_key(p): np.asarray(a) for p, a in
+            jax.tree_util.tree_flatten_with_path(params)[0]}
+
+
+def small_stack():
+    """`_init_small(PRNGKey(0))` from STACK_GOLDEN: the configs and the
+    tree from tracing it, the values from the file (numpy leaves)."""
+    box = {}
+
+    def init(key):
+        box["models"] = _init_small(key)
+        return box["models"].params
+
+    paths, tree = jax.tree_util.tree_flatten_with_path(
+        jax.eval_shape(init, jax.random.PRNGKey(0)))
+    golden = np.load(STACK_GOLDEN)
+    params = jax.tree_util.tree_unflatten(
+        tree, [golden[_path_key(p)] for p, _ in paths])
+    return dataclasses.replace(box["models"], params=params)
+
+
 def _jax_stack():
     """(JAX models with the perturbed ControlNet, their numpy params, the
     unperturbed ControlNet's numpy params)."""
-    jm = JaxModels.init_random(jax.random.PRNGKey(0), small=True,
-                               with_controlnet=True, with_ipa=True)
+    jm = small_stack()
     params = jax.tree.map(np.asarray, jm.params)
     plain_cn = params["controlnet"]
     params = dict(params, controlnet=_perturb(plain_cn))
@@ -585,10 +627,26 @@ def test_new_entry_points_default_to_cuda(stacks):
             DressingPipeline(port, PRESETS[name])
 
 
+@pytest.mark.slow
+def test_small_stack_golden_is_current():
+    """The stored parameters against a live `init_random`, bit for bit."""
+    live = record_small_stack()
+    golden = np.load(STACK_GOLDEN)
+    assert set(live) == set(golden.files)
+    for k, v in live.items():
+        np.testing.assert_array_equal(v, golden[k], err_msg=k)
+
+
 if __name__ == "__main__":
+    import sys
+
     # the settings tests/conftest.py gives the suite
     os.environ.setdefault("IMAGDRESSING_DISABLE_PALLAS", "1")
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_threefry_partitionable", True)
-    np.savez_compressed(PRESETS_GOLDEN, **record_presets_golden())
-    print("wrote", PRESETS_GOLDEN, os.path.getsize(PRESETS_GOLDEN), "bytes")
+    # `python tests/test_torch_presets.py stack` re-records the stack's
+    # parameters; without an argument, the presets golden
+    path, record = ((STACK_GOLDEN, record_small_stack) if "stack" in sys.argv
+                    else (PRESETS_GOLDEN, record_presets_golden))
+    np.savez_compressed(path, **record())
+    print("wrote", path, os.path.getsize(path), "bytes")

@@ -260,7 +260,7 @@ def test_train_cli_refusals(stubbed, tmp_path):
     manifest = _write_manifest(tmp_path, n=1)
     base = ["--data_json_file", str(manifest), "--output_dir",
             str(tmp_path / "o")]
-    with pytest.raises(SystemExit, match="multi-GPU"):
+    with pytest.raises(SystemExit, match="allow_cpu_mesh"):
         train_cli.main(base + ["--tensor_parallel", "2", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
