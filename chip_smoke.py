@@ -117,9 +117,25 @@ Phases, each printing one line:
  20. eval: `eval.cli cami-u` over the dress phase's garments and results,
      `eval.cli cami-s-grid` (2 prompts x 2 poses x 2 faces x 2 garments)
      with a random full-width CLIP ViT-B/32, the written OpenPose and a
-     fixed face embedder; CLIP embed and OpenPose times.
+     fixed face embedder; CLIP embed and OpenPose times;
+ 21. detect: the offline dataset toolchain at full width from written
+     files: 8 synthetic photos with instance-id PNGs -> `tools.
+     coco_annotations train` -> `apps.detect_cli train` (the person Mask
+     R-CNN, `MaskRCNNConfig()`, 512, batch 2, 10 steps; then as one NCCL
+     rank with --data_parallel -1) -> `detect_cli infer` -> `tools.
+     make_crop` -> SCHP on an image and its crops, the logits stitched and
+     fused (`tools.dataset_fusion`): s/step, peak memory (the phase's
+     own, over what earlier phases hold, and with it), a profiled
+     step's busy share, launches and top device ops, s per image of each
+     tool, K7's launches in the parser and none in the detector.
 (abn_train_check runs right after check: the training-mode ABN forward and
-backward on the card at SCHP's shapes against the CPU in float64.)
+backward on the card at SCHP's shapes against the CPU in float64;
+detect_check right after dist_check: the tiny detector, TF32 off, card
+against CPU (features, RPN, proposals, the loss and its gradients on the
+same draws with the ROI stages fed the CPU's proposals, and fed the card's
+own where they agree; one optimizer step on one gradient, in units of lr;
+detect_instances, and the mask head fed the CPU's detections) and 2 gloo
+ranks on the card against one process for the data-parallel step.)
 Then the per-kernel JSON line, the `nvidia-smi` line, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 Without a card, or without the rest of the repository, it exits non-zero.
@@ -3333,6 +3349,387 @@ def phase_dist_main(paths, counters):
                            "device, or the flags' path, disagree")
 
 
+# ---------------------------------------------------------------------------
+# The offline dataset toolchain: the person detector and the tools
+# ---------------------------------------------------------------------------
+
+DETECT_IMAGES = 8
+DETECT_STEPS = 10
+DETECT_RTOL = 1e-4  # features, gradients, masks: of max|ref|, fp32
+DETECT_LOSS_RTOL = 1e-5
+DETECT_STEP_TOL = 1e-2  # an optimizer step's change, in units of lr
+
+
+def _flip_gap(ref, got, k):
+    """Where the first k of `got`'s descending order differ from `ref`'s
+    (rows of scores; stable order), the largest gap, in `ref`'s values,
+    between the two elements that took the same place; None where the
+    orders agree. Two values off by at most e each can swap places only
+    where they lie within 2e."""
+    import torch
+
+    ref, got = ref.float().cpu(), got.float().cpu()
+    ir, ig = (torch.sort(v, dim=-1, descending=True, stable=True)
+              .indices[..., :k] for v in (ref, got))
+    moved = ir != ig
+    if not bool(moved.any()):
+        return None
+    return float((ref.gather(-1, ir) - ref.gather(-1, ig)).abs()[moved]
+                 .max())
+
+
+def _first_flip_gap(ref, got, same):
+    """Detections of each row in NMS order, `same` (rows, D) where both
+    sides chose the same box: at each row's first place that differs, the
+    gap between the two scores chosen there (after it, the suppressions
+    follow from that choice); None where every place agrees."""
+    gaps = []
+    for r in range(same.shape[0]):
+        if not bool(same[r].all()):
+            i = int((~same[r]).nonzero()[0, 0])
+            gaps.append(abs(float(ref[r, i]) - float(got[r, i])))
+    return max(gaps) if gaps else None
+
+
+def phase_detect_check():
+    """The tiny detector (fp32, TF32 off), card against CPU from the same
+    weights, batch (2 noisy 128x128 images) and sampling draws: the FPN
+    features, the RPN outputs, the proposals (fed the CPU's RPN outputs,
+    and the card's own); `detection_loss` and every gradient with the ROI
+    stages fed the CPU's proposals, and with the card's own where they
+    equal the CPU's; one ClipAdam step (lr 1e-3) on the CPU's gradient on
+    both, in units of lr; `detect_instances`, and the mask head fed the
+    CPU's detections; then 2 gloo ranks sharing the card against one
+    process on it (`tools/detect_check.data_parallel_vs_one`). A discrete
+    choice (top-k, NMS order) of the card's own run may differ from the
+    CPU's only where the two values that swapped lie within twice the
+    continuous error; the stages fed the same inputs are held either
+    way."""
+    import torch
+
+    from imagdressing_tpu_torch.detect import infer as dinf
+    from imagdressing_tpu_torch.detect import maskrcnn
+    from imagdressing_tpu_torch.detect import train as dtrain
+    from imagdressing_tpu_torch.tools import detect_check as dc
+
+    cfg = maskrcnn.tiny_config()
+    cpu = maskrcnn.init(0, cfg, "cpu")
+    gpu = copy.deepcopy(cpu).cuda()
+    size = 128
+    host = {k: torch.from_numpy(v) for k, v in
+            dc.synthetic_batch(cfg, 2, size).items()}
+    dev = {k: v.cuda() for k, v in host.items()}
+    draws = dtrain.make_draws(cfg, 2, (size, size),
+                              torch.Generator().manual_seed(0))
+    draws_dev = {k: (p.cuda(), n.cuda()) for k, (p, n) in draws.items()}
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = {}
+
+    def loss_row(lg, gg, lc, gc):
+        loss_err = max(abs(float(lg[k].detach()) - float(lc[k].detach()))
+                       / abs(float(lc[k].detach())) for k in lc)
+        grad_err = max(float((a.cpu() - b).abs().max())
+                       / max(float(b.abs().max()), 1e-12)
+                       for a, b in zip(gg, gc))
+        return dict(max_rel_err=loss_err, tol=DETECT_LOSS_RTOL,
+                    grad_max_err_of_max=grad_err, grad_tol=DETECT_RTOL,
+                    ok=loss_err <= DETECT_LOSS_RTOL
+                    and grad_err <= DETECT_RTOL)
+
+    try:
+        with torch.no_grad():
+            fc = maskrcnn.apply_backbone_fpn(cpu, host["image"])
+            fg = maskrcnn.apply_backbone_fpn(gpu, dev["image"])
+            for i, (a, b) in enumerate(zip(fg, fc)):
+                rows[f"P{i + 2}"] = _max_err(a.cpu(), b, DETECT_RTOL)
+            obj_c, del_c = maskrcnn.apply_rpn_head(cpu, fc)
+            obj_g, del_g = maskrcnn.apply_rpn_head(gpu, fg)
+            rows["objectness"] = _max_err(obj_g.cpu(), obj_c, DETECT_RTOL)
+            rows["rpn_deltas"] = _max_err(del_g.cpu(), del_c, DETECT_RTOL)
+            anchors = maskrcnn.anchors_on(cfg, (size, size), "cpu")
+            pc, vc = maskrcnn.rpn_proposals(cfg, anchors, obj_c, del_c,
+                                            (size, size))
+            pg, vg = maskrcnn.rpn_proposals(
+                cfg, anchors.cuda(), obj_c.cuda(), del_c.cuda(),
+                (size, size))
+            own, own_valid = maskrcnn.rpn_proposals(
+                cfg, anchors.cuda(), obj_g, del_g, (size, size))
+        same_inputs = bool(torch.equal(vg.cpu(), vc)) and float(
+            (pg.cpu() - pc).abs().max()) <= 1e-3
+        own_same = bool(torch.equal(own_valid.cpu(), vc)) and float(
+            (own.cpu() - pc).abs().max()) <= 1e-3
+        obj_err = rows["objectness"]["max_abs_err"]
+        topk_gap = _flip_gap(obj_c, obj_g, cfg.rpn_pre_nms_topk)
+        rows["proposals"] = dict(fed_cpu_rpn_equal=same_inputs,
+                                 own_rpn_equal=own_same,
+                                 topk_flip_gap=topk_gap,
+                                 flip_gap_tol=2 * obj_err)
+        lc, gc = dtrain.loss_and_grads(cpu, host, draws)
+        rows["loss"] = dict(losses={k: float(v.detach())
+                                    for k, v in lc.items()})
+        # the ROI stages fed the CPU's proposals: held whatever the card's
+        # own top-k and NMS chose
+        rows["loss_fed_cpu_proposals"] = loss_row(
+            *dtrain.loss_and_grads(gpu, dev, draws_dev,
+                                   proposals=(pc.cuda(), vc.cuda())),
+            lc, gc)
+        if own_same:
+            rows["loss_own_proposals"] = loss_row(
+                *dtrain.loss_and_grads(gpu, dev, draws_dev), lc, gc)
+        # ClipAdam on one gradient (the CPU's) on both sides, read as each
+        # parameter's change in units of lr
+        lr = 1e-3
+        before = [p.detach().clone() for p in cpu.parameters()]
+        on_cpu = [p.clone() for p in before]
+        on_gpu = [p.cuda() for p in before]
+        dtrain.ClipAdam(on_cpu, lr).step(gc)
+        dtrain.ClipAdam(on_gpu, lr).step([g.cuda() for g in gc])
+        step_err = max(float(((a.cpu() - b) / lr).abs().max())
+                       for a, b in zip(on_gpu, on_cpu))
+        rows["adam_step"] = dict(max_err_in_lr=step_err,
+                                 tol=DETECT_STEP_TOL, lr=lr)
+        dcpu = dinf.detect_instances(cpu, host["image"], score_threshold=0.0)
+        dgpu = dinf.detect_instances(gpu, dev["image"], score_threshold=0.0)
+        same_box = ((dgpu["boxes"].cpu() - dcpu["boxes"]).abs().amax(-1)
+                    <= 1e-3) & (dgpu["valid"].cpu() == dcpu["valid"])
+        det_same = bool(same_box.all())
+        with torch.no_grad():
+            fed = torch.sigmoid(maskrcnn.mask_forward(
+                gpu, fg, maskrcnn.rois_with_batch(dcpu["boxes"].cuda()))[
+                    ..., 0]).reshape(dcpu["masks"].shape)
+        rows["detect_instances"] = dict(
+            same_detections=det_same,
+            nms_flip_gap=_first_flip_gap(dcpu["scores"], dgpu["scores"].cpu(),
+                                         same_box),
+            scores=_max_err(dgpu["scores"].cpu(), dcpu["scores"],
+                            DETECT_RTOL),
+            masks=_max_err(dgpu["masks"].cpu(), dcpu["masks"], DETECT_RTOL),
+            masks_fed_cpu_detections=_max_err(fed.cpu(), dcpu["masks"],
+                                              DETECT_RTOL))
+        t0 = time.perf_counter()
+        dp = dc.data_parallel_vs_one(gpu, dev, draws_dev)
+        dp["wall_s"] = time.perf_counter() - t0
+        rows["data_parallel_2_gloo_ranks"] = dp
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    feats_ok = all(rows[k]["finite"] and rows[k]["max_abs_err"]
+                   <= rows[k]["tol"] for k in
+                   ("P2", "P3", "P4", "P5", "P6", "objectness",
+                    "rpn_deltas"))
+    # a flipped discrete choice is allowed only where the two values that
+    # swapped lie within the continuous error
+    end_to_end = own_same or (topk_gap is not None
+                              and topk_gap <= 2 * obj_err)
+    loss_ok = rows["loss_fed_cpu_proposals"]["ok"] and (
+        not own_same or rows["loss_own_proposals"]["ok"])
+    det = rows["detect_instances"]
+    fed_masks = det["masks_fed_cpu_detections"]
+    det_ok = (det["masks"]["finite"] and fed_masks["finite"]
+              and fed_masks["max_abs_err"] <= fed_masks["tol"] and (
+                  (det_same
+                   and det["scores"]["max_abs_err"] <= det["scores"]["tol"]
+                   and det["masks"]["max_abs_err"] <= det["masks"]["tol"])
+                  or (not det_same and det["nms_flip_gap"] is not None
+                      and det["nms_flip_gap"]
+                      <= 2 * max(det["scores"]["max_abs_err"], obj_err))))
+    n_params = sum(p.numel() for p in cpu.parameters())
+    dp_ok = (dp["loss_rel_err"] <= DETECT_LOSS_RTOL
+             and dp["step_loss_rel_err"] <= DETECT_LOSS_RTOL
+             and dp["grad_err"] <= DETECT_RTOL
+             and dp["replay_err"] <= DETECT_STEP_TOL
+             and dp["step_err"] <= DETECT_STEP_TOL
+             and dp["steps_over_floor"] >= n_params // 2
+             and dp["ranks_equal"])
+    ok = bool(feats_ok and same_inputs and end_to_end and loss_ok
+              and step_err <= DETECT_STEP_TOL and det_ok and dp_ok)
+    emit("detect_check", model="Mask R-CNN tiny_config, fp32, TF32 off",
+         input=f"2x{size}x{size}", rows=rows, ok=ok)
+    if not ok:
+        raise SmokeFailure(f"detect_check: {rows}")
+
+
+def _parse_logits(net, img_rgb, size=473):
+    """SCHP logits of a uint8 RGB image at `size`, resized back to the
+    image (the global-local parsing's per-image and per-crop pass)."""
+    import numpy as np
+    import torch
+
+    from imagdressing_tpu_torch.ops.resize import cv2_resize_linear_u8
+    from imagdressing_tpu_torch.preprocess.parsing.model import (
+        resize_align_corners,
+    )
+    from imagdressing_tpu_torch.train.parsing_train import ParsingDataset
+
+    h, w = img_rgb.shape[:2]
+    bgr = cv2_resize_linear_u8(np.ascontiguousarray(img_rgb[..., ::-1]),
+                               size, size)
+    x = (bgr.astype(np.float32) / 255.0 - ParsingDataset.MEAN) \
+        / ParsingDataset.STD
+    with torch.no_grad():
+        fusion, _ = net(torch.from_numpy(x)[None].cuda())
+        out = resize_align_corners(fusion.float(), h, w)[0]
+    return out.cpu().numpy()
+
+
+def phase_detect(root, counters):
+    """The offline dataset toolchain at full width, from files in `root`:
+    DETECT_IMAGES synthetic photos (600x450 / 450x600 JPEG, 1-3 people)
+    with instance-id PNGs -> `tools.coco_annotations train` -> `apps.
+    detect_cli train` (`MaskRCNNConfig()`, 512, batch 2, DETECT_STEPS
+    steps at lr 1e-4: at 1e-3, ten Adam steps from random weights leave
+    every mask logit below 0, so no instance has a mask and make_crop cuts
+    nothing; then 3 steps as one NCCL rank with --data_parallel -1) ->
+    `detect_cli infer --score_threshold 0` -> `tools.make_crop` -> SCHP
+    (20 classes, random) on the first image and its crops, the crops'
+    logits stitched (`stitch_patch_logits`) and fused (`fuse_global_local`).
+    Prints s/step (median after the first), peak GiB, a profiled step's
+    wall, device time, busy share, kernel launches and top device ops, s
+    per image of coco_annotations, infer and make_crop, and the hand-
+    written kernels' launches (none in the detector; K7 in the parser)."""
+    import numpy as np
+    import torch
+
+    from imagdressing_tpu_torch.apps import detect_cli
+    from imagdressing_tpu_torch.apps import image_utils as iu
+    from imagdressing_tpu_torch.preprocess.parsing import model as schp
+    from imagdressing_tpu_torch.tools import coco_annotations, make_crop
+    from imagdressing_tpu_torch.tools import dataset_fusion as fusion
+    from imagdressing_tpu_torch.tools import profile_detect as pdet
+
+    ddir = os.path.join(root, "detect")
+    img_dir, ann_dir = pdet.write_person_dataset(ddir, DETECT_IMAGES)
+    n = DETECT_IMAGES
+    t0 = time.perf_counter()
+    _run_cli(coco_annotations.main, [
+        "train", "--json_save_dir", ddir, "--train_img_dir", img_dir,
+        "--train_anno_dir", ann_dir])
+    coco_s = (time.perf_counter() - t0) / n
+    ann = os.path.join(ddir, "CIHP_train.json")
+    with open(ann) as f:
+        n_ann = len(json.load(f)["annotations"])
+    people = sum(1 + i % 3 for i in range(n))
+
+    params = os.path.join(ddir, "detector.npz")
+    common = ["--annotations", ann, "--img_dir", img_dir, "--device", "cuda"]
+    train = ["--batch_size", "2", "--learning_rate", "1e-4"]
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    t0 = time.perf_counter()
+    _, res = _run_cli(detect_cli.main, [
+        "train", *common, *train, "--out", params, "--steps",
+        str(DETECT_STEPS), "--log_every", str(DETECT_STEPS)])
+    train_s = time.perf_counter() - t0
+    peak_all = torch.cuda.max_memory_allocated() / 2**30
+    peak = peak_all - held / 2**30
+    kernels_train = {k: c.count for k, c in counters.items()}
+    later = res["step_s"][1:]
+    s_step = sorted(later)[len(later) // 2]
+    _, dp = _one_rank_world(lambda: _run_cli(detect_cli.main, [
+        "train", *common, *train, "--out",
+        os.path.join(ddir, "detector_dp.npz"), "--steps", "3",
+        "--log_every", "3", "--data_parallel", "-1"]))
+    # the first step's loss (no update yet) is the one-process run's; later
+    # ones move with the scatter-add backward's order on the card
+    dp_err = abs(dp["losses"][0] - res["losses"][0]) / abs(res["losses"][0])
+    dp_later = max(abs(a - b) / abs(b) for a, b in
+                   zip(dp["losses"][1:], res["losses"][1:3]))
+    profiled = pdet.profile_train_step(ann, img_dir)
+
+    inst = os.path.join(ddir, "instances.npy")
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    _, preds = _run_cli(detect_cli.main, [
+        "infer", *common, "--params", params, "--out", inst,
+        "--score_threshold", "0"])
+    infer_s = (time.perf_counter() - t0) / n
+    kernels_infer = {k: c.count for k, c in counters.items()}
+    infer_profile = pdet.profile_infer(params, ann, img_dir)
+    t0 = time.perf_counter()
+    crop_json = make_crop.run(img_dir, os.path.join(ddir, "crops"), inst,
+                              conf_thres=0.0)
+    crop_s = (time.perf_counter() - t0) / n
+    with open(crop_json) as f:
+        items = json.load(f)["root"]
+    crops_written = sum(
+        os.path.exists(os.path.join(ddir, "crops", "crop_pic", name))
+        for item in items for name in item["bbox_name"])
+    with_mask = sum(int(i["segmentation"].any()) for v in preds.values()
+                    for i in v)
+    shapes_ok = all(
+        inst_["segmentation"].shape == iu.read_image(
+            os.path.join(img_dir, name)).shape[:2]
+        and math.isfinite(inst_["score"])
+        for name, insts in preds.items() for inst_ in insts)
+
+    # stage 5: SCHP global / local logits of the first image, fused
+    item = items[0]
+    img = iu.read_image(os.path.join(img_dir, item["im_name"]))
+    net = schp.init(0, 20, "cuda")
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    global_logits = _parse_logits(net, img)
+    patches, boxes = [], []
+    for name, (x0, y0, x1, y1) in zip(item["bbox_name"],
+                                      item["person_bbox"]):
+        crop = iu.read_image(os.path.join(ddir, "crops", "crop_pic", name))
+        patches.append(_parse_logits(net, crop))
+        boxes.append((y0, x0, y1 - y0 + 1, x1 - x0 + 1))
+    local = fusion.stitch_patch_logits(patches, boxes, *img.shape[:2], 20)
+    panoptic = np.load(os.path.join(ddir, "crops", "crop_mask",
+                                    item["mask_name"]))
+    category, instance = fusion.fuse_global_local(global_logits, local,
+                                                  panoptic)
+    fusion_s = time.perf_counter() - t0
+    k7 = counters["bn_act"].count
+    forwards = 1 + len(patches)
+    fused_ok = (category.shape == img.shape[:2]
+                and set(np.unique(instance)) <= set(np.unique(panoptic))
+                and bool(np.isfinite(local).all()))
+
+    finite = all(math.isfinite(v) for v in res["losses"] + dp["losses"])
+    ok = bool(finite and n_ann == people and len(preds) == n
+              and all(preds.values()) and shapes_ok and len(items) == n
+              and crops_written == sum(len(i["bbox_name"]) for i in items)
+              and crops_written > 0 and dp_err <= DETECT_LOSS_RTOL
+              and not any(kernels_train.values())
+              and not any(kernels_infer.values())
+              and k7 == K7_PER_FORWARD * forwards and fused_ok)
+    emit("detect", model="Mask R-CNN MaskRCNNConfig() (ResNet-18-shaped GN "
+         "backbone, FPN 256, 1000->256 proposals, 128 ROI samples, 14->28 "
+         "masks)", input="512x512 letterboxed, batch 2, fp32 (TF32 convs)",
+         images=n, people=people, annotations=n_ann,
+         coco_annotations_s_per_image=coco_s, steps=DETECT_STEPS,
+         s_per_step=s_step, step_s=res["step_s"], train_wall_s=train_s,
+         peak_gib=peak, peak_gib_with_held=peak_all,
+         held_gib=held / 2**30, losses=res["losses"],
+         last_metrics=res["metrics"][-1], profiled_step=profiled,
+         nccl_rank_losses=dp["losses"], nccl_rank_loss_rel_err=dp_err,
+         nccl_rank_later_loss_rel_err=dp_later,
+         infer_s_per_image=infer_s, infer_profiled_image=infer_profile,
+         instances_per_image=[len(v) for v in preds.values()],
+         instances_with_mask=with_mask,
+         make_crop_s_per_image=crop_s, crops=crops_written,
+         fusion=dict(image=item["im_name"], crops=len(patches),
+                     wall_s=fusion_s, k7_launches=k7,
+                     k7_expected=K7_PER_FORWARD * forwards,
+                     labels=sorted(int(v) for v in np.unique(category))),
+         kernel_launches_train=kernels_train,
+         kernel_launches_infer=kernels_infer, nvidia_smi=nvidia_smi(),
+         ok=ok)
+    if not ok:
+        raise SmokeFailure("detect: the toolchain's outputs or counts are "
+                           "wrong")
+
+
 def main() -> int:
     import torch
 
@@ -3370,6 +3767,7 @@ def main() -> int:
         phase_mini_presets()
         phase_mini_train()
         phase_dist_check()
+        phase_detect_check()
         phase_parse_check()
         timings = phase_time()
         inference = {"flash_fwd": fa.COUNTER, "gn_silu_conv3x3": fgc.COUNTER,
@@ -3407,6 +3805,7 @@ def main() -> int:
                                                              all_kernels)
             phase_parse_eval(root, params, image_dir, label_dir, fba.COUNTER)
             phase_eval(root, pre)
+            phase_detect(root, all_kernels)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import io
 import os
-from typing import List, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -63,14 +63,18 @@ def read_image(src: Union[str, bytes]) -> np.ndarray:
     return np.asarray(image.open(io.BytesIO(data)).convert("RGB"))
 
 
-def write_image(path: str, img: np.ndarray) -> None:
+def write_image(path: str, img: np.ndarray,
+                quality: Optional[int] = None) -> None:
     """uint8 (H, W, 3) -> `path`, in the format of its extension: .png by
-    `encode_png`, any other through PIL."""
+    `encode_png`, any other through PIL (`quality`: the JPEG quality,
+    PIL's default 75 where None)."""
     if path.lower().endswith(".png"):
         with open(path, "wb") as f:
             f.write(encode_png(img))
         return
-    _pil(f"writing {os.path.basename(path)}").fromarray(img).save(path)
+    extra = {} if quality is None else {"quality": quality}
+    _pil(f"writing {os.path.basename(path)}").fromarray(
+        np.ascontiguousarray(img)).save(path, **extra)
 
 
 def resize_img(img: np.ndarray, max_side: int = 640, min_side: int = 512,

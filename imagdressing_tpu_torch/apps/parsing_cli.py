@@ -36,7 +36,7 @@ import argparse
 import os
 import sys
 import time
-from typing import Dict, List, Tuple
+from typing import Dict
 
 import numpy as np
 import torch
@@ -102,16 +102,6 @@ def _leaf_key(net: torch.nn.Module, name: str) -> str:
     return name.replace(".", "/")
 
 
-def _jax_order(keys: List[str]) -> List[str]:
-    """Key paths in `jax.tree.flatten`'s order: dict keys sorted at each
-    level, list items by index (the legacy "p{i}" format's order)."""
-    def sort_key(path: str) -> Tuple:
-        return tuple((0, int(p), "") if p.isdigit() else (1, 0, p)
-                     for p in path.split("/"))
-
-    return sorted(keys, key=sort_key)
-
-
 def load_params(path: str, num_classes: int, device="cuda"):
     """A params .npz (key paths or legacy "p{i}") or an SCHP torch
     checkpoint -> an SCHP net in eval mode on `device`. A wrong
@@ -130,7 +120,9 @@ def load_params(path: str, num_classes: int, device="cuda"):
     names = list(template.state_dict())
     keys = {n: _leaf_key(template, n) for n in names}
     if "p0" in flat.files:
-        order = _jax_order(list(keys.values()))
+        from imagdressing_tpu_torch.convert import jax_leaf_order
+
+        order = jax_leaf_order(list(keys.values()))
         index = {k: i for i, k in enumerate(order)}
         arrays = {n: flat[f"p{index[keys[n]]}"] for n in names}
     else:

@@ -17,12 +17,13 @@ changes, once, here:
 A leaf may be a numpy array or a torch tensor (the checkpoint converters of
 `convert/torch_sd.py` keep a file's tensors in their dtype).
 `tree_from_module` is the inverse: a port module's parameters as the JAX
-tree, for `convert/export_torch.py`.
+tree, for `convert/export_torch.py`. The JAX CLIs' flat `.npz` files
+("p0", "p1", ... in `jax.tree.leaves` order) map by `jax_leaf_order`.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Optional, Tuple, Union
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -136,6 +137,48 @@ def openpose_params_from_jax(tree: Any) -> StateDict:
     of the port's `BodyPoseNet`, `HandPoseNet` or `FaceNet` (OIHW, the same
     layer names)."""
     return state_dict_from_jax(tree)
+
+
+def detector_params_from_jax(tree: Any) -> StateDict:
+    """The JAX person detector's tree (`detect.maskrcnn.init`: backbone,
+    fpn, rpn, box_heads, mask; numpy leaves) -> the state dict of the
+    port's `detect.maskrcnn.MaskRCNN` (HWIO -> OIHW, (in, out) -> (out,
+    in), norm scale -> weight; the module paths are the tree's)."""
+    return state_dict_from_jax(tree)
+
+
+def jax_leaf_order(paths: List[str]) -> List[str]:
+    """"/"-joined key paths in `jax.tree.flatten`'s order: dict keys
+    sorted at each level, list items by index."""
+    def sort_key(path: str) -> Tuple:
+        return tuple((0, int(p), "") if p.isdigit() else (1, 0, p)
+                     for p in path.split("/"))
+
+    return sorted(paths, key=sort_key)
+
+
+def tree_paths(tree: Any) -> Dict[str, Any]:
+    """A nested tree -> {"/"-joined key path: leaf}."""
+    return {"/".join(p): a for p, a in _leaves(tree)}
+
+
+def tree_from_flat_leaves(flat: Mapping[str, np.ndarray], paths: List[str]
+                          ) -> Dict[str, Any]:
+    """A JAX CLI's flat .npz ("p{i}", the i-th leaf in `jax.tree.leaves`
+    order) and the tree's key paths -> the nested tree (list levels keyed
+    "0", "1", ...; `state_dict_from_jax` reads either)."""
+    order = jax_leaf_order(paths)
+    if len(flat) != len(order):
+        raise ValueError(f"{len(flat)} leaves in the file, the model has "
+                         f"{len(order)}")
+    root: Dict[str, Any] = {}
+    for i, path in enumerate(order):
+        *parents, last = path.split("/")
+        node = root
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[last] = np.asarray(flat[f"p{i}"])
+    return root
 
 
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, StateDict]:

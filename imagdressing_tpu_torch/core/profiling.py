@@ -4,6 +4,8 @@
     device activity), written as a Chrome trace into `log_dir`;
   * `annotate(name)`: a named range that `torch.profiler` records and, on a
     card, an NVTX range (what a CUDA timeline shows);
+  * `device_summary(prof, wall_ms)`: a profiled window's device time,
+    busy share, kernel launches and costliest device ops;
   * `StepTimer`: the host-side data / step time split of the reference
     implementation's log line; with a device given, `step_done`
     synchronises it first, as the JAX package blocks on the result.
@@ -14,7 +16,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Dict, Iterator, Optional
+from typing import Any, Dict, Iterator, Optional
 
 import torch
 
@@ -43,6 +45,25 @@ def annotate(name: str) -> Iterator[None]:
     finally:
         if nvtx:
             torch.cuda.nvtx.range_pop()
+
+
+def device_summary(prof, wall_ms: float, top: int = 10) -> Dict[str, Any]:
+    """A profiled window (device activity recorded) -> its device ms (the
+    kernels' own time), busy share of the wall, kernel launches, and the
+    `top` device ops by time [name, ms, launches]."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for row in prof.key_averages():
+        if row.device_type == DeviceType.CUDA:
+            ms = getattr(row, "self_device_time_total",
+                         getattr(row, "self_cuda_time_total", 0.0)) / 1e3
+            rows.append([row.key, ms, row.count])
+    rows.sort(key=lambda r: -r[1])
+    device = sum(r[1] for r in rows)
+    return {"wall_ms": wall_ms, "device_ms": device,
+            "busy_share": device / wall_ms if wall_ms else 0.0,
+            "launches": sum(r[2] for r in rows), "top_device_ops": rows[:top]}
 
 
 class StepTimer:

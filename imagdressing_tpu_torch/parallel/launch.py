@@ -81,11 +81,13 @@ def join(device: str, data: int, model: int):
 
 def run_app(entry: Callable, argv: Sequence[str], body: Callable, *,
             data_parallel: int, tensor_parallel: int, device: str,
-            allow_cpu_mesh: bool = False):
+            allow_cpu_mesh: bool = False, rank0_result: bool = False):
     """An app's ranks, from its --data_parallel / --tensor_parallel flags
     (`plan`): inside a launched world, join it, return body(mesh) and
     leave it; outside one, start the ranks, each rerunning entry(argv)
-    (more than one asked for; returns None), or return body(None) here."""
+    (more than one asked for; returns None, or with `rank0_result` what
+    entry(argv) returned on rank 0, which must pickle), or return
+    body(None) here."""
     from imagdressing_tpu_torch.core import mesh as mesh_lib
 
     data, model = plan(data_parallel, tensor_parallel, device,
@@ -95,9 +97,9 @@ def run_app(entry: Callable, argv: Sequence[str], body: Callable, *,
             return body(None)
         # an app runs as long as it is asked to: no deadline of its own
         # (the ranks' collectives keep the process group's timeout)
-        spawn(_app_rank, data * model, (entry, list(argv)),
-              timeout=float("inf"))
-        return None
+        out = spawn(_app_rank, data * model,
+                    (entry, list(argv), rank0_result), timeout=float("inf"))
+        return out[0] if rank0_result else None
     mesh = join(device, data, model)
     try:
         return body(mesh)
@@ -105,8 +107,9 @@ def run_app(entry: Callable, argv: Sequence[str], body: Callable, *,
         mesh_lib.destroy()
 
 
-def _app_rank(entry: Callable, argv: List[str]) -> None:
-    entry(argv)  # its result stays in the rank's process
+def _app_rank(entry: Callable, argv: List[str], keep: bool) -> Any:
+    result = entry(argv)
+    return result if keep else None  # else it stays in the rank's process
 
 
 def free_port() -> int:
@@ -181,7 +184,9 @@ def spawn(fn: Callable, nprocs: int, args: Sequence[Any] = (), *,
                 raise RuntimeError(f"rank {rank} failed:\n{value}")
             out[rank] = value
         for p in procs:
-            p.join(timeout=max(deadline - time.monotonic(), 1.0))
+            # an app's ranks have no deadline (inf), which join cannot take
+            left = deadline - time.monotonic()
+            p.join(timeout=None if left == float("inf") else max(left, 1.0))
         return [out[r] for r in range(nprocs)]
     finally:
         for p in procs:

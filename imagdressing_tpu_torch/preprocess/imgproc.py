@@ -232,6 +232,52 @@ def fill_convex_poly(img: np.ndarray, pts: Sequence[Point], value,
             break
 
 
+def fill_poly(img: np.ndarray, polys: Sequence[np.ndarray], value) -> None:
+    """`cv2.fillPoly(img, polys, value)` (LINE_8, integer vertices) for
+    any number of rings, convex or not, self-intersecting or overlapping
+    (even-odd): each ring's outline as 8-connected lines, then the
+    scanline fill of OpenCV's edge table. As OpenCV 5 fills: an edge's x
+    starts at the vertex's column (no half-pixel offset) and each span runs
+    from the ceiling of its left x to the floor of its right x. Exact
+    against OpenCV 5 for vertices inside the image; an edge clipped at the
+    border follows OpenCV 4's rule and may differ by a few pixels."""
+    h, w = img.shape[:2]
+    edges = []
+    for poly in polys:
+        v = [(int(x), int(y)) for x, y in poly]
+        if not v:
+            continue
+        p0 = v[-1]
+        for p1 in v:
+            line(img, p0, p1, value)
+            (x0, y0), (x1, y1) = p0, p1
+            if not (0 <= x0 < w and 0 <= x1 < w and 0 <= y0 < h
+                    and 0 <= y1 < h):
+                t0, t1 = list(p0), list(p1)
+                clip_line(w, h, t0, t1)
+                if t0[1] != t1[1]:
+                    (x0, y0), (x1, y1) = t0, t1
+            if p0[1] != p1[1]:
+                dx = _cdiv((x1 - x0) << XY_SHIFT, y1 - y0)
+                if p0[1] < p1[1]:
+                    edges.append((p0[1], p1[1],
+                                  (x0 << XY_SHIFT) + (p0[1] - y0) * dx, dx))
+                else:
+                    edges.append((p1[1], p0[1],
+                                  (x1 << XY_SHIFT) + (p1[1] - y1) * dx, dx))
+            p0 = p1
+    if len(edges) < 2:
+        return
+    ey0, ey1, ex, edx = np.asarray(edges, np.int64).T
+    for y in range(max(int(ey0.min()), 0), min(int(ey1.max()), h)):
+        on = (ey0 <= y) & (y < ey1)
+        xs = np.sort(ex[on] + (y - ey0[on]) * edx[on])
+        for a, b in zip(xs[0::2].tolist(), xs[1::2].tolist()):
+            x1, x2 = (a + XY_ONE - 1) >> XY_SHIFT, b >> XY_SHIFT
+            if x1 < w and x2 >= 0:
+                _hline(img, y, max(x1, 0), min(x2, w - 1), value)
+
+
 def circle(img: np.ndarray, center: Point, radius: int, value) -> None:
     """A filled circle, `cv2.circle(img, center, radius, value, -1)`
     (OpenCV's midpoint `Circle` with fill)."""
@@ -496,3 +542,156 @@ def warp_affine_reflect(img: np.ndarray, m: np.ndarray, w: int,
     out = (src[ya, xa] * ((1 - ax) * (1 - ay)) + src[ya, xb] * (ax * (1 - ay))
            + src[yb, xa] * ((1 - ax) * ay) + src[yb, xb] * (ax * ay))
     return out.numpy()
+
+
+# ---------------------------------------------------------------------------
+# Contours and polygon simplification (OpenCV's contours.cpp, approx.cpp)
+# ---------------------------------------------------------------------------
+
+# chain code s -> (dx, dy): 0 right, counter-clockwise on screen (y down)
+_CHAIN = ((1, 0), (1, -1), (0, -1), (-1, -1), (-1, 0), (-1, 1), (0, 1),
+          (1, 1))
+
+
+def _trace_outer(img: np.ndarray, x0: int, y0: int) -> List[Point]:
+    """Suzuki-Abe outer border following from its first raster pixel, as
+    OpenCV's `icvFetchContour` walks it (the first neighbour clockwise from
+    west, then counter-clockwise searches), keeping the points where the
+    chain code changes (CHAIN_APPROX_SIMPLE). `img` is zero-padded."""
+    s = s_end = 4
+    while True:
+        s = (s - 1) & 7
+        dx, dy = _CHAIN[s]
+        if img[y0 + dy, x0 + dx] or s == s_end:
+            break
+    if s == s_end:  # a single pixel
+        return [(x0, y0)]
+    i0 = (x0, y0)
+    i1 = (x0 + _CHAIN[s][0], y0 + _CHAIN[s][1])
+    i3 = i0
+    prev_s = s ^ 4
+    pts = []
+    while True:
+        while True:
+            s += 1
+            dx, dy = _CHAIN[s & 7]
+            i4 = (i3[0] + dx, i3[1] + dy)
+            if img[i4[1], i4[0]] or s >= 15:
+                break
+        s &= 7
+        if s != prev_s:
+            pts.append(i3)
+            prev_s = s
+        if i4 == i0 and i3 == i1:
+            return pts
+        i3 = i4
+        s = (s + 4) & 7
+
+
+def find_contours_external(mask: np.ndarray) -> List[np.ndarray]:
+    """`cv2.findContours(mask, RETR_EXTERNAL, CHAIN_APPROX_SIMPLE)[0]`:
+    the outer border of every 8-connected component of the nonzero pixels
+    that lies in no other component's hole, as (n, 2) int64 [x, y] vertex
+    arrays in OpenCV's order (the reverse of their first pixels' raster
+    order). A component is outermost when the background pixel west of its
+    first pixel is 4-connected to the image's outside."""
+    fg = np.pad(np.asarray(mask) != 0, 1)
+    lab, n = ndimage.label(fg, structure=np.ones((3, 3), bool))
+    if n == 0:
+        return []
+    bg, _ = ndimage.label(~fg)
+    flat = np.flatnonzero(lab)
+    first = np.full(n + 1, fg.size, np.int64)
+    np.minimum.at(first, lab.ravel()[flat], flat)
+    out = []
+    for start in np.sort(first[1:]).tolist():
+        y, x = divmod(start, fg.shape[1])
+        if bg[y, x - 1] == bg[0, 0]:
+            out.append(np.asarray(_trace_outer(fg, x, y), np.int64) - 1)
+    return out[::-1]
+
+
+def approx_poly_dp(curve: np.ndarray, epsilon: float) -> np.ndarray:
+    """`cv2.approxPolyDP(curve, epsilon, closed=True)` of an (n, 2) integer
+    curve -> (m, 2) int64, as OpenCV 5 computes it: Douglas-Peucker from
+    two roughly farthest points (three rounds of farthest-from-start), a
+    point's deviation measured to the chord as a segment (its ends where
+    the projection falls outside), then the pass that drops points on
+    nearly straight runs."""
+    src = [(int(x), int(y)) for x, y in np.asarray(curve).reshape(-1, 2)]
+    count = len(src)
+    if count == 0:
+        return np.zeros((0, 2), np.int64)
+    eps = epsilon * epsilon
+    stack: List[Tuple[int, int]] = []
+    dst: List[Point] = []
+    pos, far = 0, 0
+    for _ in range(3):
+        max_dist = 0
+        pos = (pos + far) % count
+        start = src[pos]
+        for j in range(1, count):
+            pt = src[(pos + j) % count]
+            dist = (pt[0] - start[0]) ** 2 + (pt[1] - start[1]) ** 2
+            if dist > max_dist:
+                max_dist, far = dist, j
+    if max_dist <= eps:
+        dst.append(start)
+    else:
+        mid = (pos + far) % count
+        stack += [(mid, pos), (pos, mid)]
+    while stack:
+        a, b = stack.pop()
+        start, end = src[a], src[b]
+        if (a + 1) % count == b:
+            dst.append(start)
+            continue
+        dx, dy = end[0] - start[0], end[1] - start[1]
+        seg = dx * dx + dy * dy
+        max_dist, split = 0, a
+        i = (a + 1) % count
+        while i != b:
+            px, py = src[i][0] - start[0], src[i][1] - start[1]
+            dot = px * dx + py * dy
+            if dot <= 0:
+                dist = (px * px + py * py) * seg
+            elif dot >= seg:
+                dist = ((src[i][0] - end[0]) ** 2
+                        + (src[i][1] - end[1]) ** 2) * seg
+            else:
+                dist = (py * dx - px * dy) ** 2
+            if dist > max_dist:
+                max_dist, split = dist, i
+            i = (i + 1) % count
+        if max_dist <= eps * seg:
+            dst.append(start)
+        else:
+            stack += [(split, b), (a, split)]
+    # drop points on [almost] straight runs (the closed curve's clean-up)
+    count = kept = len(dst)
+    pos = 0
+    start, wpos = dst[count - 1], 0
+    pt = dst[pos]
+    pos = (pos + 1) % count
+    i = 0
+    while i < count and kept > 2:
+        end = dst[pos]
+        pos = (pos + 1) % count
+        dx, dy = end[0] - start[0], end[1] - start[1]
+        dist = abs((pt[0] - start[0]) * dy - (pt[1] - start[1]) * dx)
+        inner = ((pt[0] - start[0]) * (end[0] - pt[0])
+                 + (pt[1] - start[1]) * (end[1] - pt[1]))
+        if (dist * dist <= 0.5 * eps * (dx * dx + dy * dy) and dx != 0
+                and dy != 0 and inner >= 0):
+            kept -= 1
+            start = dst[wpos] = end
+            wpos = (wpos + 1) % count
+            pt = dst[pos]
+            pos = (pos + 1) % count
+            i += 2
+            continue
+        start = dst[wpos] = pt
+        wpos = (wpos + 1) % count
+        pt = end
+        i += 1
+    return np.asarray(dst[:kept], np.int64).reshape(-1, 2)

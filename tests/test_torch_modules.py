@@ -319,8 +319,8 @@ def test_port_imports_no_jax():
         PORT_DIR.parent / "tests" / "test_torch_gpu.py"]
     assert len(files) > 10
     # the preset slice's modules, the apps slice's, the preprocessing
-    # slice's, the training CLI's and the parser fine-tune / eval slice's
-    # are among them
+    # slice's, the training CLI's, the parser fine-tune / eval slice's and
+    # the dataset toolchain's are among them
     names = {str(f.relative_to(PORT_DIR.parent)) for f in files}
     port = "imagdressing_tpu_torch/"
     assert {port + m for m in (
@@ -338,7 +338,13 @@ def test_port_imports_no_jax():
         "core/profiling.py", "apps/train_cli.py", "apps/parsing_cli.py",
         "train/parsing_losses.py", "train/parsing_train.py",
         "eval/__init__.py", "eval/cami.py", "eval/clip_score.py",
-        "eval/grid.py", "eval/cli.py", "tools/profile_parse_train.py")} <= names
+        "eval/grid.py", "eval/cli.py", "tools/profile_parse_train.py",
+        "ops/boxes.py", "ops/roi_align.py", "detect/__init__.py",
+        "detect/maskrcnn.py", "detect/targets.py", "detect/train.py",
+        "detect/infer.py", "detect/data.py", "detect/eval.py",
+        "apps/detect_cli.py", "tools/coco_annotations.py",
+        "tools/dataset_fusion.py", "tools/make_crop.py",
+        "tools/detect_check.py", "tools/profile_detect.py")} <= names
     for path in files:
         tree = ast.parse(path.read_text(), str(path))
         in_functions = {id(n) for f in ast.walk(tree)
