@@ -127,7 +127,19 @@ Phases, each printing one line:
      fused (`tools.dataset_fusion`): s/step, peak memory (the phase's
      own, over what earlier phases hold, and with it), a profiled
      step's busy share, launches and top device ops, s per image of each
-     tool, K7's launches in the parser and none in the detector.
+     tool, K7's launches in the parser and none in the detector;
+ 22. parity: the weights-day runbook's replay (`tools/record_reference.py`)
+     at full SD1.5 width in fp32: one random stack (ControlNet perturbed,
+     IP adapters) drawn on the CPU and copied to the card; each preset's
+     golden (`basic`, `pose`, `ipa_pose`, `inpaint`; 256x256, 2 DDIM steps,
+     the full spec surface) recorded on the CPU and replayed on the card
+     with TF32 off through K1-K4's fp32 kernels: every key within atol 5e-3
+     + rtol 1e-3 * max|golden|, K1-K4's launches, the CPU's record and the
+     card's replay seconds;
+ 23. detectron2_ops: `ops/deform_conv.deform_conv2d` (DCNv2 at a ResNet
+     res5 shape, samples in the border band) and `ops/swap_align2nat` (a
+     TensorMask shape, lambda 2), forward and backward card against CPU in
+     fp32, and their card ms.
 (abn_train_check runs right after check: the training-mode ABN forward and
 backward on the card at SCHP's shapes against the CPU in float64;
 detect_check right after dist_check: the tiny detector, TF32 off, card
@@ -3730,6 +3742,185 @@ def phase_detect(root, counters):
                            "wrong")
 
 
+# the weights-day replay at full SD1.5 width, fp32: only the resolution is
+# cut (the CPU records every golden), and 2 DDIM steps
+PARITY_SIZE = 256
+PARITY_STEPS = 2
+PARITY_PRESETS = ("basic", "pose", "ipa_pose", "inpaint")
+
+
+def phase_parity(root, counters):
+    """The weights-day runbook's replay (`tools/record_reference.py`) at
+    full SD1.5 width in fp32: one random stack with the ControlNet (every
+    leaf perturbed, so its residuals are not zero) and the IP adapters,
+    drawn on the CPU; each preset's golden (PARITY_SIZE, PARITY_STEPS, the
+    full spec surface) recorded by `record_golden` on that CPU stack, then
+    replayed by `replay(golden, models=<the card's copy>)` in fp32 with
+    TF32 off, through K1-K4 in their fp32 modes. Per preset: the worst
+    error per key against its tolerance, the CPU's record seconds, the
+    card's replay seconds, K1-K4's launches in the replay (each must run).
+    Any tensor beyond atol 5e-3 + rtol 1e-3 * max|golden| fails."""
+    import numpy as np
+    import torch
+
+    from imagdressing_tpu_torch.pipelines.dressing import (
+        DressingModels,
+        model_configs,
+    )
+    from imagdressing_tpu_torch.tools import record_reference as rr
+
+    t0 = time.perf_counter()
+    cpu = rr.synthetic_models(0, with_controlnet=True, with_ipa=True,
+                              small=False, device="cpu")
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gpu = DressingModels.from_state_dicts(
+        {name: m.state_dict() for name, m in cpu.modules().items()},
+        model_configs(small=False), device="cuda")
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
+    latent_pixels = (PARITY_SIZE // 8) ** 2
+    emit("parity_setup", size=f"{PARITY_SIZE}x{PARITY_SIZE}",
+         steps=PARITY_STEPS, cut="resolution only (full SD1.5 widths and "
+         "depths; 256x256 so that the CPU records each golden)",
+         cpu_init_s=init_s, to_card_s=copy_s,
+         parameters=sum(p.numel() for m in cpu.modules().values()
+                        for p in m.parameters()))
+    failures = []
+    for i, preset in enumerate(PARITY_PRESETS):
+        path = os.path.join(root, f"ref_parity_{preset}.npz")
+        t0 = time.perf_counter()
+        golden = rr.record_golden(path, cpu, preset, seed=i,
+                                  steps=PARITY_STEPS, size=PARITY_SIZE)
+        record_s = time.perf_counter() - t0
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        try:
+            errors = rr.replay(path, gpu)
+            failure = None
+        except AssertionError as e:
+            errors, failure = {}, str(e)
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+        conv = counters["gn_silu_conv3x3"].by_shape
+        pixel = sum(n for (_, hh, ww, _, _), n in conv.items()
+                    if hh * ww > latent_pixels)
+        launches = {"flash_fwd": counters["flash_fwd"].count,
+                    "gn_silu_conv3x3": counters["gn_silu_conv3x3"].count
+                    - pixel, "gn_silu_conv3x3[vae_pixel]": pixel,
+                    "group_norm_act": counters["group_norm_act"].count}
+        flash_d = sorted({k[3] for k in counters["flash_fwd"].by_shape})
+        keys = {k: dict(err=v, tol=5e-3 + 1e-3 * float(
+            np.abs(golden[k]).max())) for k, v in errors.items()
+            if k not in rr.INPUT_KEYS}
+        worst = max(keys, key=lambda k: keys[k]["err"] / keys[k]["tol"],
+                    default=None)
+        zero = [k for k, n in launches.items() if n == 0]
+        ok = failure is None and not zero and bool(keys)
+        emit("parity", preset=preset, tensors_compared=len(keys),
+             keys=keys, worst_key=worst,
+             worst=keys[worst] if worst else None, cpu_record_s=record_s,
+             card_replay_s=replay_s, launches=launches,
+             flash_head_dims=flash_d, failure=failure, ok=ok)
+        if not ok:
+            failures.append(f"{preset}: {failure or f'no launches {zero}'}")
+    del cpu, gpu
+    if failures:
+        raise SmokeFailure("parity: " + "; ".join(failures))
+
+
+DEFORM_SHAPE = (2, 25, 42, 512)  # detectron2 ResNet res5, 3x3 DCNv2 512->512
+SWAP_SHAPE, SWAP_LAMBDA = (2, 64, 64, 225), 2  # TensorMask's 15x15 windows
+
+
+def phase_detectron2_ops():
+    """`ops/deform_conv.deform_conv2d` (DCNv2 with mask, DEFORM_SHAPE,
+    offsets in [-2, 2] so that many samples fall in the one-pixel border
+    band) and `ops/swap_align2nat.swap_align2nat` (SWAP_SHAPE, lambda 2),
+    card against CPU in fp32 with TF32 off: outputs within 1e-5 of
+    max|CPU|, gradients of sum(out * G) within 1e-4; the card's ms of each
+    forward and backward."""
+    import numpy as np
+    import torch
+
+    from imagdressing_tpu_torch.ops.deform_conv import deform_conv2d
+    from imagdressing_tpu_torch.ops.swap_align2nat import swap_align2nat
+    from imagdressing_tpu_torch.tools.record_reference import fp32_precision
+    from imagdressing_tpu_torch.tools.timing import cuda_ms
+
+    rng = np.random.default_rng(0)
+    b, h, w, c = DEFORM_SHAPE
+    k = 3
+    f32 = np.float32
+    deform = dict(
+        x=rng.standard_normal(DEFORM_SHAPE).astype(f32),
+        offsets=rng.uniform(-2, 2, (b, h, w, 2 * k * k)).astype(f32),
+        weight=(rng.standard_normal((k, k, c, c))
+                / math.sqrt(k * k * c)).astype(f32),
+        mask=rng.uniform(0, 1, (b, h, w, k * k)).astype(f32))
+    bias = rng.standard_normal(c).astype(f32)
+    taps = np.arange(k * k)
+    py = (np.arange(h) - 1)[:, None, None] + taps // k \
+        + deform["offsets"].reshape(b, h, w, k * k, 2)[..., 0]
+    px = (np.arange(w) - 1)[None, :, None] + taps % k \
+        + deform["offsets"].reshape(b, h, w, k * k, 2)[..., 1]
+    band = int((((py > -1) & (py < 0)) | ((py > h - 1) & (py < h))
+                | ((px > -1) & (px < 0)) | ((px > w - 1) & (px < w))).sum())
+    swap = dict(x=rng.standard_normal(SWAP_SHAPE).astype(f32))
+
+    def deform_fn(a):
+        return deform_conv2d(a["x"], a["offsets"], a["weight"], a["bias"],
+                             a["mask"], stride=1, padding=1, dilation=1)
+
+    def swap_fn(a):
+        return swap_align2nat(a["x"], SWAP_LAMBDA)
+
+    ok_all = True
+    with fp32_precision():
+        for name, fn, arrays, extra in (
+                ("deform_conv2d", deform_fn, deform, {"bias": bias}),
+                ("swap_align2nat", swap_fn, swap, {})):
+            out = {}
+            for dev in ("cpu", "cuda"):
+                a = {n: torch.from_numpy(v).to(dev).requires_grad_()
+                     for n, v in arrays.items()}
+                a.update({n: torch.from_numpy(v).to(dev)
+                          for n, v in extra.items()})
+                y = fn(a)
+                g = torch.from_numpy(np.random.default_rng(1).standard_normal(
+                    tuple(y.shape)).astype(f32)).to(dev)
+                grads = torch.autograd.grad(y, [a[n] for n in arrays], g,
+                                            retain_graph=True)
+                out[dev] = (y.detach().cpu(), [t.cpu() for t in grads])
+                if dev == "cuda":
+                    fwd_ms = cuda_ms(lambda: fn(a))
+                    bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+                        y, [a[n] for n in arrays], g, retain_graph=True))
+            (want, want_g), (got, got_g) = out["cpu"], out["cuda"]
+            rows = {}
+            for what, a_, b_, rtol in [("out", got, want, 1e-5)] + [
+                    (f"d{n}", ga, gb, 1e-4)
+                    for n, ga, gb in zip(arrays, got_g, want_g)]:
+                err = float((a_ - b_).abs().max())
+                ref = float(b_.abs().max())
+                rows[what] = dict(max_abs_err=err, max_abs_ref=ref,
+                                  tol=rtol * ref,
+                                  ok=math.isfinite(err) and err <= rtol * ref)
+            ok = all(r["ok"] for r in rows.values())
+            ok_all = ok_all and ok
+            emit("detectron2_ops", op=name,
+                 shape=list(arrays["x"].shape), card_fwd_ms=fwd_ms,
+                 card_bwd_ms=bwd_ms, checks=rows,
+                 **({"samples_in_border_band": band,
+                     "weight": [k, k, c, c]} if name == "deform_conv2d"
+                    else {"lambda": SWAP_LAMBDA,
+                          "out_shape": list(want.shape)}),
+                 nvidia_smi=nvidia_smi(), ok=ok)
+    if not ok_all:
+        raise SmokeFailure("detectron2_ops: card and CPU disagree")
+
+
 def main() -> int:
     import torch
 
@@ -3806,6 +3997,8 @@ def main() -> int:
             phase_parse_eval(root, params, image_dir, label_dir, fba.COUNTER)
             phase_eval(root, pre)
             phase_detect(root, all_kernels)
+            phase_parity(root, inference)
+            phase_detectron2_ops()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1

@@ -85,6 +85,18 @@ VOCAB_TOKENS = ["l", "o", "w", "lo", "low", "e", "r", "er", "lower</w>",
 MERGES = "#version: 0.2\nl o\nlo w\ne r</w>\nlow er</w>\n"
 
 
+# torch's thread count before `_threads` lowers it (see `fingerprint`)
+DEFAULT_THREADS = torch.get_num_threads()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def write_vocab(path) -> None:
     vocab = {"<|startoftext|>": 0, "<|endoftext|>": 1}
     vocab.update({t: i + 2 for i, t in enumerate(VOCAB_TOKENS)})
@@ -113,12 +125,19 @@ def pil_png(img: np.ndarray, **kw) -> bytes:
 
 
 def fingerprint(models: DressingModels) -> np.ndarray:
-    """fp64 sum and sum of squares of every `basic` model's parameters."""
-    out = []
-    for name in dressing.MODEL_NAMES:
-        for p in getattr(models, name).parameters():
-            p = p.detach().double()
-            out += [float(p.sum()), float((p * p).sum())]
+    """fp64 sum and sum of squares of every `basic` model's parameters, on
+    torch's default threads: the sums' order, and so their last bits,
+    follow the thread count the golden was recorded with."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(DEFAULT_THREADS)
+    try:
+        out = []
+        for name in dressing.MODEL_NAMES:
+            for p in getattr(models, name).parameters():
+                p = p.detach().double()
+                out += [float(p.sum()), float((p * p).sum())]
+    finally:
+        torch.set_num_threads(n)
     return np.asarray(out)
 
 

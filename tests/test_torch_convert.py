@@ -53,6 +53,14 @@ JAX_CONFIGS = {k: _JAX_CLASSES[k](**dataclasses.asdict(v))
                for k, v in CONFIGS.items()}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def stack():
     return DressingModels.init_random(0, small=True, with_controlnet=True,

@@ -38,6 +38,14 @@ from imagdressing_tpu_torch.tools import dataset_fusion as tfusion
 from imagdressing_tpu_torch.tools import make_crop as tcrop
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def blob_mask(rng, h, w, k, noise=0.0):
     """Ellipses xor-ed together (rings, holes, islands inside holes,
     components touching the border), optionally with speckle."""
@@ -338,10 +346,12 @@ def test_make_crop_matches_jax(tmp_path):
 # ------------------------------------------------------------ the chain ----
 
 
-def test_toolchain_cli_chain_on_cpu(tmp_path):
+def test_toolchain_cli_chain_on_cpu(tmp_path, monkeypatch):
     """coco_annotations train -> detect_cli train --tiny --steps 2 ->
     detect_cli infer -> make_crop, on --device cpu; the card is the
     default and raises here."""
+    # the CLI's spawned ranks start torch with two threads, as this process
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
     img_dir, ann_dir = write_dataset(tmp_path, n=3)
     out = tmp_path / "coco"
     tcoco.main(["train", "--json_save_dir", str(out), "--train_img_dir",

@@ -22,6 +22,7 @@ coordinates and ROI features 1e-4 absolute on values up to 64; discrete
 outputs (indices, validity, labels, samples, proposals' order) exact.
 """
 
+import functools
 import os
 
 import jax
@@ -61,6 +62,14 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "goldens",
 SIZE = 64
 KEY = 7  # the loss's PRNG key
 MAX_DET = 5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def close(got, want, tol=1e-4):
@@ -221,10 +230,11 @@ def test_nms_fixed_matches_jax(score_threshold):
     scores[0, 7] = scores[0, 3]  # an exact tie: the lower index first
     got_i, got_v = tb.nms_fixed(t(boxes), t(scores), iou_threshold=0.3,
                                 max_out=32, score_threshold=score_threshold)
+    nms = jax.jit(functools.partial(jb.nms_fixed, iou_threshold=0.3,
+                                    max_out=32,
+                                    score_threshold=score_threshold))
     for i in range(3):
-        want_i, want_v = jb.nms_fixed(
-            jnp.asarray(boxes[i]), jnp.asarray(scores[i]), iou_threshold=0.3,
-            max_out=32, score_threshold=score_threshold)
+        want_i, want_v = nms(jnp.asarray(boxes[i]), jnp.asarray(scores[i]))
         np.testing.assert_array_equal(got_v[i].numpy(), want_v)
         np.testing.assert_array_equal(got_i[i].numpy(), want_i)
     one_i, one_v = tb.nms_fixed(t(boxes[0]), t(scores[0]),
@@ -306,11 +316,12 @@ def test_match_boxes_matches_jax():
         got_m, got_l = tt.match_boxes(t(cands), t(gts), t(valid),
                                       pos_iou=pos, neg_iou=neg,
                                       allow_low_quality=low)
+        match = jax.jit(functools.partial(jt.match_boxes, pos_iou=pos,
+                                          neg_iou=neg,
+                                          allow_low_quality=low))
         for i in range(2):
-            want_m, want_l = jt.match_boxes(
-                jnp.asarray(cands[i]), jnp.asarray(gts[i]),
-                jnp.asarray(valid[i]), pos_iou=pos, neg_iou=neg,
-                allow_low_quality=low)
+            want_m, want_l = match(jnp.asarray(cands[i]), jnp.asarray(gts[i]),
+                                   jnp.asarray(valid[i]))
             np.testing.assert_array_equal(got_l[i].numpy(), want_l)
             np.testing.assert_array_equal(got_m[i].numpy(), want_m)
 
@@ -321,10 +332,10 @@ def test_sample_balanced_on_jax_priorities():
     labels = rng.choice([-1, 0, 1], p=[0.2, 0.7, 0.1],
                         size=(2, 300)).astype(np.int32)
     labels[1, :] = np.where(labels[1] == 1, 0, labels[1])  # no positives
+    sample = jax.jit(functools.partial(jt.sample_balanced, num_samples=64,
+                                       positive_fraction=0.25))
     for i, key in enumerate(jax.random.split(jax.random.PRNGKey(11), 2)):
-        want_sel, want_pos = jt.sample_balanced(
-            jnp.asarray(labels[i]), key, num_samples=64,
-            positive_fraction=0.25)
+        want_sel, want_pos = sample(jnp.asarray(labels[i]), key)
         kp, kn = jax.random.split(key)
         pri = (t(jax.random.uniform(kp, (300,)))[None],
                t(jax.random.uniform(kn, (300,)))[None])
@@ -343,10 +354,10 @@ def test_crop_gt_masks_matches_jax():
     matched = rng.integers(0, 3, (2, 12))
     rois = np.stack([random_boxes(rng, 12, -2, 25) for _ in range(2)])
     got = tt.crop_gt_masks(t(masks), t(matched), t(rois), 14)
+    crop = jax.jit(jt.crop_gt_masks, static_argnums=3)
     for i in range(2):
-        want = jt.crop_gt_masks(jnp.asarray(masks[i]),
-                                jnp.asarray(matched[i]),
-                                jnp.asarray(rois[i]), 14)
+        want = crop(jnp.asarray(masks[i]), jnp.asarray(matched[i]),
+                    jnp.asarray(rois[i]), 14)
         np.testing.assert_array_equal(got[i].numpy(), want)
 
 

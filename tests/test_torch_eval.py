@@ -42,6 +42,14 @@ from imagdressing_tpu_torch.tools.write_checkpoints import (
 )
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def garment(seed, h=96, w=80):
     """A smooth random uint8 BGR image with a few hard-edged patches."""
     rng = np.random.default_rng(seed)

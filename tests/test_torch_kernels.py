@@ -10,6 +10,7 @@ numpy from a seed. fp32 tolerances are those of the JAX kernel tests or
 tighter.
 """
 
+import functools
 import itertools
 
 import jax
@@ -75,10 +76,11 @@ def test_flash_matches_pallas_interpret(fa_interpret, d, dual):
                        for _ in range(5))
     scale = np.array([0.0, 0.7], np.float32)
     if dual:
-        want = jfa.flash_attention(*map(jnp.asarray, (q, k, v, kr, vr, scale)))
+        want = jax.jit(jfa.flash_attention)(
+            *map(jnp.asarray, (q, k, v, kr, vr, scale)))
         got = flash_attention(*map(_t, (q, k, v, kr, vr, scale)))
     else:
-        want = jfa.flash_attention(*map(jnp.asarray, (q, k, v)))
+        want = jax.jit(jfa.flash_attention)(*map(jnp.asarray, (q, k, v)))
         got = flash_attention(*map(_t, (q, k, v)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
 
@@ -88,7 +90,7 @@ def test_flash_wide_head_dim_matches_pallas_interpret(fa_interpret):
     rng = np.random.default_rng(7)
     q, k, v = (rng.standard_normal((1, 256, 1, 512)).astype(np.float32)
                for _ in range(3))
-    want = jfa.flash_attention(*map(jnp.asarray, (q, k, v)))
+    want = jax.jit(jfa.flash_attention)(*map(jnp.asarray, (q, k, v)))
     got = flash_attention(*map(_t, (q, k, v)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
 
@@ -105,7 +107,8 @@ def test_flash_ragged_matches_xla_forward(sq, skv, sref):
     kr, vr = (rng.standard_normal((2, sref, 2, 40)).astype(np.float32)
               for _ in range(2))
     scale = np.array([0.0, 0.7], np.float32)
-    want = jfa._xla_forward_equiv(*map(jnp.asarray, (q, k, v, kr, vr, scale)))
+    want = jax.jit(jfa._xla_forward_equiv)(
+        *map(jnp.asarray, (q, k, v, kr, vr, scale)))
     got = flash_attention(*map(_t, (q, k, v, kr, vr, scale)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
     # the scale-0 row is exactly the single-source attention
@@ -126,7 +129,7 @@ def test_flash_bf16_matches_pallas_interpret(fa_interpret):
     q, k, v, kr, vr = (rng.standard_normal((2, 256, 2, 40)).astype(np.float32)
                        for _ in range(5))
     scale = np.array([0.0, 0.7], np.float32)
-    want = jfa.flash_attention(
+    want = jax.jit(jfa.flash_attention)(
         *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, kr, vr)),
         jnp.asarray(scale))
     got = flash_attention(*(_t(x).to(torch.bfloat16) for x in (q, k, v, kr, vr)),
@@ -276,7 +279,7 @@ def test_flash_grads_match_pallas_interpret(fa_interpret, dual):
     def loss(*a):
         return jnp.sum(jfa.flash_attention(*a) * g)
 
-    want = jax.grad(loss, argnums=tuple(range(len(args))))(
+    want = jax.jit(jax.grad(loss, argnums=tuple(range(len(args)))))(
         *map(jnp.asarray, args))
     got = _grads_port(args, g, dual)
     for i, (x, y) in enumerate(zip(got, want)):
@@ -300,7 +303,8 @@ def test_flash_grads_ragged_match_xla_autodiff(sq, skv, sref):
     def loss(*a):
         return jnp.sum(jfa._xla_forward_equiv(*a) * g)
 
-    want = jax.grad(loss, argnums=tuple(range(6)))(*map(jnp.asarray, args))
+    want = jax.jit(jax.grad(loss, argnums=tuple(range(6))))(
+        *map(jnp.asarray, args))
     got = _grads_port(args, g, True)
     for i, (x, y) in enumerate(zip(got, want)):
         np.testing.assert_allclose(x, np.asarray(y), atol=2e-5, rtol=1e-5,
@@ -363,10 +367,10 @@ def _port_gn_conv(x, gw, gb, t, wt, cb):
 def test_gn_conv_matches_pallas_interpret(with_add, shape):
     """K2 (`_kernel`) shapes of the JAX kernel test; fp32, atol 2e-4."""
     x, gw, gb, t, wt, cb = _gn_conv_inputs(shape, with_add, 0)
-    want = jfgc._fused_call(*map(lambda a: None if a is None else
-                                 jnp.asarray(a), (x, gw, gb, t, wt, cb)),
-                            num_groups=32, eps=1e-5, act="silu",
-                            interpret=True)
+    want = jax.jit(functools.partial(
+        jfgc._fused_call, num_groups=32, eps=1e-5, act="silu",
+        interpret=True))(*map(lambda a: None if a is None else
+                              jnp.asarray(a), (x, gw, gb, t, wt, cb)))
     np.testing.assert_allclose(_port_gn_conv(x, gw, gb, t, wt, cb),
                                np.asarray(want), atol=2e-4)
 
@@ -377,10 +381,10 @@ def test_gn_conv_matches_windowed_interpret(shape, with_add):
     """K4 (`_windowed_kernel`), the same function on the VAE-style shapes
     of the JAX kernel test; the port's one op covers it. fp32, atol 2e-4."""
     x, gw, gb, t, wt, cb = _gn_conv_inputs(shape, with_add, 4)
-    want = jfgc._windowed_call(*map(lambda a: None if a is None else
-                                    jnp.asarray(a), (x, gw, gb, t, wt, cb)),
-                               num_groups=32, eps=1e-5, act="silu",
-                               interpret=True)
+    want = jax.jit(functools.partial(
+        jfgc._windowed_call, num_groups=32, eps=1e-5, act="silu",
+        interpret=True))(*map(lambda a: None if a is None else
+                              jnp.asarray(a), (x, gw, gb, t, wt, cb)))
     np.testing.assert_allclose(_port_gn_conv(x, gw, gb, t, wt, cb),
                                np.asarray(want), atol=2e-4)
 
@@ -556,7 +560,7 @@ def test_group_norm_matches_pallas_interpret(gn_interpret, act, with_add):
     wt = rng.standard_normal(c).astype(np.float32)
     bs = rng.standard_normal(c).astype(np.float32)
     t = rng.standard_normal((b, c)).astype(np.float32) if with_add else None
-    want = jfg.fused_group_norm_act(
+    want = jax.jit(jfg.fused_group_norm_act, static_argnums=(4, 5, 6))(
         jnp.asarray(x), jnp.asarray(wt), jnp.asarray(bs),
         None if t is None else jnp.asarray(t), g, 1e-5, act)
     got = group_norm_act(_t(x), _t(wt), _t(bs), num_groups=g, eps=1e-5,
@@ -580,7 +584,7 @@ def test_gn_conv_grads_match_jax(with_add):
         return jnp.sum(y * g)
 
     jargs = [x, gw, gb, wt, cb] + ([t] if with_add else [])
-    want = jax.grad(loss, argnums=tuple(range(len(jargs))))(
+    want = jax.jit(jax.grad(loss, argnums=tuple(range(len(jargs)))))(
         *map(jnp.asarray, jargs))
     tx, tgw, tgb, tcb = (_t(a).requires_grad_() for a in (x, gw, gb, cb))
     tw = _conv_w(wt).requires_grad_()
@@ -613,7 +617,7 @@ def test_group_norm_grads_match_jax(act, with_add):
         return jnp.sum(y * g)
 
     jargs = [x, wt, bs] + ([t] if with_add else [])
-    want = jax.grad(loss, argnums=tuple(range(len(jargs))))(
+    want = jax.jit(jax.grad(loss, argnums=tuple(range(len(jargs)))))(
         *map(jnp.asarray, jargs))
     leaves = [_t(a).requires_grad_() for a in jargs]
     y = group_norm_act(*leaves[:3], num_groups=32, eps=1e-5, act=act,

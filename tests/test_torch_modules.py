@@ -319,8 +319,9 @@ def test_port_imports_no_jax():
         PORT_DIR.parent / "tests" / "test_torch_gpu.py"]
     assert len(files) > 10
     # the preset slice's modules, the apps slice's, the preprocessing
-    # slice's, the training CLI's, the parser fine-tune / eval slice's and
-    # the dataset toolchain's are among them
+    # slice's, the training CLI's, the parser fine-tune / eval slice's, the
+    # dataset toolchain's and the parity runbook's and detectron2 ops' are
+    # among them
     names = {str(f.relative_to(PORT_DIR.parent)) for f in files}
     port = "imagdressing_tpu_torch/"
     assert {port + m for m in (
@@ -344,7 +345,10 @@ def test_port_imports_no_jax():
         "detect/infer.py", "detect/data.py", "detect/eval.py",
         "apps/detect_cli.py", "tools/coco_annotations.py",
         "tools/dataset_fusion.py", "tools/make_crop.py",
-        "tools/detect_check.py", "tools/profile_detect.py")} <= names
+        "tools/detect_check.py", "tools/profile_detect.py",
+        "tools/record_reference.py", "tools/parity.py",
+        "ops/deform_conv.py", "ops/swap_align2nat.py",
+        "ops/rotated_boxes.py")} <= names
     for path in files:
         tree = ast.parse(path.read_text(), str(path))
         in_functions = {id(n) for f in ast.walk(tree)

@@ -10,7 +10,18 @@ inference wrappers end to end with the same weights: `OpenPose.detect`
 `Face(inference_size=64)` and `Hand` at one scale. Inputs are made with
 numpy from a seed. The host assembly on synthetic maps is in
 `tests/test_torch_preprocess.py`.
+
+The JAX side is `tests/goldens/jax_openpose_tiny.npz`: the JAX package's
+nets, `OpenPose.detect`, `Face` and `Hand` (and `face_fusion.
+openpose_landmark_fn`, read by `tests/test_torch_postprocess.py`) on these
+weights and inputs. Re-record it (JAX on the CPU, ~20 s of compile):
+
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_openpose.py
+
+`test_openpose_golden_is_current` (slow) recomputes it live.
 """
+
+import os
 
 import cv2
 import jax
@@ -19,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from imagdressing_tpu.postprocess import face_fusion as jff
 from imagdressing_tpu.preprocess.openpose import face as jface
 from imagdressing_tpu.preprocess.openpose import hand as jhand
 from imagdressing_tpu.preprocess.openpose import infer as jinfer
@@ -29,6 +41,8 @@ from imagdressing_tpu_torch.preprocess.openpose import hand as phand
 from imagdressing_tpu_torch.preprocess.openpose import infer as pinfer
 from imagdressing_tpu_torch.preprocess.openpose import model as pcpm
 
+GOLDEN = os.path.join(os.path.dirname(__file__), "goldens",
+                      "jax_openpose_tiny.npz")
 # fp32 sum-order differences through 30-40 convs, relative to max|ref|
 REL_TOL = 1e-4
 
@@ -71,19 +85,29 @@ def hand_layers(module):
             + [module._stageN(i) for i in range(2, 7)])
 
 
+def trees():
+    """{name: JAX tree} of the body, hand and face nets."""
+    return {"body": numpy_tree(body_layers(), 0),
+            "hand": numpy_tree(hand_layers(jhand), 1),
+            "face": numpy_tree(hand_layers(jface), 2)}
+
+
 @pytest.fixture(scope="module")
 def nets():
     """{name: (JAX tree, port net)} for body, hand and face."""
     out = {}
-    for name, layers, cls, seed in (
-            ("body", body_layers(), pcpm.BodyPoseNet, 0),
-            ("hand", hand_layers(jhand), phand.HandPoseNet, 1),
-            ("face", hand_layers(jface), pface.FaceNet, 2)):
-        tree = numpy_tree(layers, seed)
+    for (name, tree), cls in zip(trees().items(), (
+            pcpm.BodyPoseNet, phand.HandPoseNet, pface.FaceNet)):
         net = cls()
         net.load_state_dict(openpose_params_from_jax(tree))
         out[name] = (tree, net.eval().requires_grad_(False))
     return out
+
+
+@pytest.fixture(scope="module")
+def golden():
+    with np.load(GOLDEN) as f:
+        return dict(f)
 
 
 def assert_close(got, want, what):
@@ -95,26 +119,26 @@ def assert_close(got, want, what):
     assert ref > 0 and err <= REL_TOL * ref, f"{what}: {err} vs {ref}"
 
 
+def net_input():
+    return np.random.default_rng(3).uniform(-0.5, 0.5, (1, 64, 48, 3)).astype(
+        np.float32)
+
+
 @pytest.mark.parametrize("name", ["body", "hand", "face"])
-def test_net_matches_jax(nets, name):
+def test_net_matches_jax(nets, golden, name):
     """Each net's forward at 64x48 against the JAX `apply` (the body net
     both of its branches); the port's state dict has the JAX tree's layer
     names and nothing else."""
     tree, net = nets[name]
-    apply = {"body": jcpm.apply, "hand": jhand.apply,
-             "face": jface.apply}[name]
     assert {k.rsplit(".", 1)[0] for k in net.state_dict()} == set(tree)
-    x = np.random.default_rng(3).uniform(-0.5, 0.5, (1, 64, 48, 3)).astype(
-        np.float32)
-    want = jax.jit(apply)(tree, jnp.asarray(x))
     with torch.no_grad():
-        got = net(torch.from_numpy(x))
+        got = net(torch.from_numpy(net_input()))
     if name == "body":
-        assert_close(got[0], want[0], "paf")
-        assert_close(got[1], want[1], "heatmap")
+        assert_close(got[0], golden["net_body_paf"], "paf")
+        assert_close(got[1], golden["net_body_heat"], "heatmap")
         assert got[0].shape == (1, 8, 6, 38)
     else:
-        assert_close(got, want, name)
+        assert_close(got, golden[f"net_{name}"], name)
         assert got.shape[-1] == (22 if name == "hand" else 71)
 
 
@@ -146,62 +170,57 @@ def photo(h, w, seed):
         np.uint8)
 
 
-def test_openpose_detect_matches_jax(nets, monkeypatch):
-    """`OpenPose.detect` at boxsize 64 (the net at 32 rows) against JAX's,
-    the last stage's output convs scaled by 10 so that the random maps
-    reach the NMS threshold: the up-sampled heatmap within the nets'
-    tolerance, the peaks' positions and ids exactly, their scores within
-    the tolerance, the persons exactly."""
-    tree = {k: dict(v) for k, v in nets["body"][0].items()}
+def detect_tree(body):
+    """The body tree with the last stage's output convs scaled by 10, so
+    that the random maps reach the NMS threshold."""
+    tree = {k: dict(v) for k, v in body.items()}
     for name in ("Mconv7_stage6_L1", "Mconv7_stage6_L2"):
         tree[name] = {k: v * 10 for k, v in tree[name].items()}
+    return tree
+
+
+def face_crop():
+    return photo(50, 40, 5)[..., ::-1].copy()
+
+
+def hand_crop():
+    return photo(60, 60, 6)[..., ::-1].copy()
+
+
+def test_openpose_detect_matches_jax(nets, golden):
+    """`OpenPose.detect` at boxsize 64 (the net at 32 rows) against JAX's,
+    the last stage's output convs scaled by 10 (`detect_tree`): the
+    up-sampled heatmap that JAX's peak search read within the nets'
+    tolerance, the peaks' positions and ids exactly, their scores within
+    the tolerance, the persons exactly."""
     net = pcpm.BodyPoseNet()
-    net.load_state_dict(openpose_params_from_jax(tree))
+    net.load_state_dict(openpose_params_from_jax(
+        detect_tree(nets["body"][0])))
     img = photo(96, 72, 4)
-    jop = jinfer.OpenPose(tree, boxsize=64)
     pop = pinfer.OpenPose(net, "cpu", boxsize=64)
-    seen = {}
-    real = jinfer._find_peaks
-
-    def spy(heat, thre1):
-        seen["heat"] = heat
-        return real(heat, thre1)
-
-    monkeypatch.setattr(jinfer, "_find_peaks", spy)
-    want = jop.detect(img)
+    want = golden["detect_peaks"], golden["detect_persons"]
     paf, heat = pop.maps(torch.from_numpy(img))
-    assert_close(heat.numpy(), seen["heat"], "heatmap at (H, W)")
+    assert_close(heat.numpy(), golden["detect_heat"], "heatmap at (H, W)")
     assert pop.last_stage_seconds == {}
     got = pop.detect(img)
     assert set(pop.last_stage_seconds) == {"device", "assemble"}
     assert len(want[0]) >= 10
     np.testing.assert_array_equal(got[0][:, [0, 1, 3]], want[0][:, [0, 1, 3]])
     assert np.abs(got[0][:, 2] - want[0][:, 2]).max() <= REL_TOL * np.abs(
-        seen["heat"]).max()
+        golden["detect_heat"]).max()
     np.testing.assert_array_equal(got[1], want[1])
 
 
-def test_face_and_hand_match_jax(nets):
+def test_face_and_hand_match_jax(nets, golden):
     """`Face(inference_size=64)` and `Hand` at one scale against JAX's on
     the same crops: the heatmaps within tolerance, and the landmarks."""
-    ftree, fnet = nets["face"]
-    crop = photo(50, 40, 5)[..., ::-1].copy()
-    jf = jface.Face(ftree, inference_size=64)
-    pf = pface.Face(fnet, "cpu", inference_size=64)
-    heat = pf.heatmaps(crop)
-    want = np.asarray(jface._forward(
-        ftree, jnp.asarray(cv2.resize(
-            crop, (64, 64), interpolation=cv2.INTER_CUBIC).astype(
-                np.float32)[None] / 256.0 - 0.5), 64, 64)[0])
-    assert_close(heat, want, "face heatmaps")
-    np.testing.assert_array_equal(pf(crop), jf(crop))
-
-    htree, hnet = nets["hand"]
-    crop = photo(60, 60, 6)[..., ::-1].copy()
-    jh = jhand.Hand(htree, boxsize=64)
-    ph = phand.Hand(hnet, "cpu", boxsize=64)
-    np.testing.assert_array_equal(ph(crop, scales=(1.0,)),
-                                  jh(crop, scales=(1.0,)))
+    pf = pface.Face(nets["face"][1], "cpu", inference_size=64)
+    crop = face_crop()
+    assert_close(pf.heatmaps(crop), golden["face_heatmaps"], "face heatmaps")
+    np.testing.assert_array_equal(pf(crop), golden["face_landmarks"])
+    ph = phand.Hand(nets["hand"][1], "cpu", boxsize=64)
+    np.testing.assert_array_equal(ph(hand_crop(), scales=(1.0,)),
+                                  golden["hand_landmarks"])
 
 
 def test_entry_points_need_a_card_or_cpu(nets):
@@ -213,3 +232,60 @@ def test_entry_points_need_a_card_or_cpu(nets):
                  lambda: phand.Hand(nets["hand"][1])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
+
+
+def record_openpose_golden():
+    """The JAX package on `trees()` and this module's inputs: each net at
+    64x48, `OpenPose.detect` (and the heatmap its peak search read), `Face`
+    and `Hand` on their crops, and `face_fusion.openpose_landmark_fn` on
+    `tests/test_torch_postprocess.py`'s photo."""
+    from test_torch_postprocess import landmark_photo
+
+    t = trees()
+    x = jnp.asarray(net_input())
+    out = {}
+    paf, heat = jax.jit(jcpm.apply)(t["body"], x)
+    out["net_body_paf"], out["net_body_heat"] = paf, heat
+    out["net_hand"] = jax.jit(jhand.apply)(t["hand"], x)
+    out["net_face"] = jax.jit(jface.apply)(t["face"], x)
+    seen = {}
+    real = jinfer._find_peaks
+
+    def spy(heat, thre1):
+        seen["heat"] = heat
+        return real(heat, thre1)
+
+    jinfer._find_peaks = spy
+    try:
+        peaks, persons = jinfer.OpenPose(detect_tree(t["body"]),
+                                         boxsize=64).detect(photo(96, 72, 4))
+    finally:
+        jinfer._find_peaks = real
+    out.update(detect_peaks=peaks, detect_persons=persons,
+               detect_heat=seen["heat"])
+    crop = face_crop()
+    out["face_heatmaps"] = jface._forward(
+        t["face"], jnp.asarray(cv2.resize(
+            crop, (64, 64), interpolation=cv2.INTER_CUBIC).astype(
+                np.float32)[None] / 256.0 - 0.5), 64, 64)[0]
+    out["face_landmarks"] = jface.Face(t["face"], inference_size=64)(crop)
+    out["hand_landmarks"] = jhand.Hand(t["hand"], boxsize=64)(
+        hand_crop(), scales=(1.0,))
+    out["landmark_fn"] = jff.openpose_landmark_fn(
+        t["face"], inference_size=64, threshold=-1.0)(landmark_photo())
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+@pytest.mark.slow
+def test_openpose_golden_is_current(golden):
+    fresh = record_openpose_golden()
+    assert sorted(fresh) == sorted(golden)
+    for k, v in fresh.items():
+        np.testing.assert_allclose(v, golden[k], rtol=1e-5, atol=1e-6,
+                                   err_msg=k)
+
+
+if __name__ == "__main__":
+    jax.config.update("jax_platforms", "cpu")
+    np.savez_compressed(GOLDEN, **record_openpose_golden())
+    print("wrote", GOLDEN, os.path.getsize(GOLDEN), "bytes")

@@ -5,8 +5,8 @@ One JAX small stack (`DressingModels.init_random(PRNGKey(0), small=True)`,
 the stack every golden here was recorded with; its parameters read from
 `tests/goldens/jax_small_stack.npz`, see `tests/test_torch_presets.py`) is
 converted once with `params_from_jax`. The port then replays
-`ref_synthetic_tiny.npz` stage by stage, as
-`tools/record_reference.compute_with_stack` does, runs its
+`ref_synthetic_tiny.npz` stage by stage through its own
+`tools/record_reference.compute_with_stack`, runs its
 `DressingPipeline` on the recipe of `test_tiny_config_seed_fixed_regression`,
 and replays `torch_train_step_tiny.npz`: the JAX package's jitted
 `make_train_step` on the recipe of `tests/test_train.py` (batch of 2 at
@@ -42,7 +42,7 @@ from imagdressing_tpu_torch.pipelines.dressing import (
     DressingModels,
     DressingPipeline,
 )
-from imagdressing_tpu_torch.samplers import ddim
+from imagdressing_tpu_torch.tools.record_reference import compute_with_stack
 from imagdressing_tpu_torch.train import step as tstep
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
@@ -107,33 +107,10 @@ def _t(a, dtype=torch.float32):
 
 @pytest.fixture(scope="module")
 def replayed(port):
-    """Every tensor of ref_synthetic_tiny.npz, computed by the port."""
+    """Every tensor of ref_synthetic_tiny.npz, computed by the port's
+    `tools/record_reference.compute_with_stack`."""
     g = dict(np.load(os.path.join(GOLDENS, "ref_synthetic_tiny.npz")))
-    m = port
-    out = {}
-    with torch.inference_mode():
-        text = m.text(_t(g["prompt_ids"], torch.long))
-        out["text_embeds"] = text
-        clip_hidden = m.vision(_t(g["clip_pixels_nhwc"]), penultimate=True)
-        out["clip_vision_penult"] = clip_hidden
-        cloth = m.resampler(clip_hidden)
-        out["cloth_tokens"] = cloth
-        ref_latents = m.vae.encode_mean(_t(g["ref_image_nhwc"])) \
-            * m.vae_cfg.scaling_factor
-        out["ref_latents_nhwc"] = ref_latents
-        _, captured = m.ref_unet(ref_latents, 0, cloth, capture=True)
-        for name, hidden in captured.items():
-            out[f"sa_hidden::{name}"] = hidden
-        sched = ddim.make_schedule()
-        steps = int(g["steps"])
-        ts = ddim.timesteps(sched, steps)
-        lat = _t(g["init_latents_nhwc"])
-        out["eps_step0_nhwc"] = m.unet(lat, int(ts[0]), text)
-        for t in ts:
-            lat = ddim.step(sched, m.unet(lat, int(t), text), int(t), lat,
-                            steps)
-        out["final_latents_nhwc"] = lat
-    return g, {k: v.numpy() for k, v in out.items()}
+    return g, compute_with_stack(g, port)
 
 
 @pytest.mark.parametrize("stage", [

@@ -17,6 +17,7 @@ from imagdressing_tpu.preprocess.openpose import face as jface
 from imagdressing_tpu_torch.convert import openpose_params_from_jax
 from imagdressing_tpu_torch.postprocess import face_fusion as pff
 from imagdressing_tpu_torch.preprocess.openpose import face as pface
+from test_torch_openpose import GOLDEN as OPENPOSE_GOLDEN
 from test_torch_openpose import hand_layers, numpy_tree
 
 FLOAT_TOL = 2e-3
@@ -129,21 +130,25 @@ def test_make_post_process_with_a_base64_face():
     assert np.abs(got - want).max() <= FLOAT_TOL
 
 
+def landmark_photo():
+    return (images(15, 50, 40)[0] * 255).astype(np.uint8)
+
+
 def test_openpose_landmark_fn_matches_jax():
     """The landmark function over the port's `Face` and over JAX's with the
     same random weights (inference size 64, threshold -1 so that every part
-    is found): the same 70 rows but for argmax near-ties of the flat random
-    maps (fp32 sum order; measured: 1 row, 1 px), at most 3 rows and
-    2 px."""
-    tree = numpy_tree(hand_layers(jface), 2)
+    is found; JAX's result is `tests/goldens/jax_openpose_tiny.npz`, see
+    `tests/test_torch_openpose.py`): the same 70 rows but for argmax
+    near-ties of the flat random maps (fp32 sum order; measured: 1 row,
+    1 px), at most 3 rows and 2 px."""
     net = pface.FaceNet()
-    net.load_state_dict(openpose_params_from_jax(tree))
+    net.load_state_dict(openpose_params_from_jax(
+        numpy_tree(hand_layers(jface), 2)))
     got_fn = pff.openpose_landmark_fn(pface.Face(
         net, "cpu", inference_size=64, threshold=-1.0))
-    want_fn = jff.openpose_landmark_fn(tree, inference_size=64,
-                                       threshold=-1.0)
-    rgb = (images(15, 50, 40)[0] * 255).astype(np.uint8)
-    got, want = got_fn(rgb), want_fn(rgb)
+    with np.load(OPENPOSE_GOLDEN) as f:
+        want = f["landmark_fn"]
+    got = got_fn(landmark_photo())
     assert got.shape == (70, 2) and got.dtype == np.float32
     rows = (got != want).any(1)
     assert rows.sum() <= 3 and np.abs(got - want).max() <= 2

@@ -43,6 +43,14 @@ MASK_SHARE, MASK_BAND = 0.01, 8.0
 # ---------------------------------------------------------------------------
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("hw_in,hw_out", [((5, 7), (40, 56)),
                                           ((23, 18), (184, 144)),
                                           ((40, 56), (13, 9)),

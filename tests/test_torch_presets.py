@@ -63,9 +63,15 @@ from imagdressing_tpu_torch.pipelines.dressing import (
     resize_nearest,
 )
 from imagdressing_tpu_torch.samplers import ddim, dpm, unipc
+from imagdressing_tpu_torch.tools.record_reference import (
+    INPUT_KEYS,
+    PRESET_EXTRA_SPEC,
+    compute_with_stack,
+)
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 PRESETS_GOLDEN = os.path.join(GOLDENS, "torch_presets_tiny.npz")
+MODULES_GOLDEN = os.path.join(GOLDENS, "jax_preset_modules_tiny.npz")
 STACK_GOLDEN = os.path.join(GOLDENS, "jax_small_stack.npz")
 ATOL, RTOL = 5e-3, 1e-3
 # the golden's cases: (preset, preset overrides, call arguments), 64x64,
@@ -203,25 +209,34 @@ def test_presets_match_jax():
 # ---------------------------------------------------------------------------
 
 
-def test_controlnet_residuals_match_jax(stacks):
-    """The 12 down and the mid residual of the perturbed ControlNet at a CFG
-    batch of 2, conditioning_scale 0.7, against `controlnet.apply`."""
-    jm, port, _ = stacks
+@pytest.fixture(scope="module")
+def modules_golden():
+    with np.load(MODULES_GOLDEN) as f:
+        return dict(f)
+
+
+def _controlnet_inputs():
     rng = np.random.default_rng(1)
     lat = rng.standard_normal((2, 8, 8, 4)).astype(np.float32)
     text = rng.standard_normal((2, 77, 32)).astype(np.float32)
     pose = rng.random((2, 64, 64, 3)).astype(np.float32)
-    t = np.array([981, 981], np.int32)
-    fn = jax.jit(lambda p, x, tt, c, img: jcontrolnet.apply(
-        p, jm.controlnet_cfg, x, tt, c, cond_image=img,
-        conditioning_scale=0.7))
-    want_down, want_mid = fn(jm.params["controlnet"], lat, t, text, pose)
+    return lat, np.array([981, 981], np.int32), text, pose
+
+
+def test_controlnet_residuals_match_jax(stacks, modules_golden):
+    """The 12 down and the mid residual of the perturbed ControlNet at a CFG
+    batch of 2, conditioning_scale 0.7, against `controlnet.apply` (its
+    values in MODULES_GOLDEN, see `record_modules_golden`)."""
+    _, port, _ = stacks
+    lat, t, text, pose = _controlnet_inputs()
+    want_down = [modules_golden[f"cn_down_{i:02d}"] for i in range(12)]
+    want_mid = modules_golden["cn_mid"]
     with torch.inference_mode():
         cn = port.controlnet
         down, mid = cn(_t(lat), _t(t, torch.long), _t(text),
                        cond_emb=cn.cond_embedding(_t(pose)),
                        conditioning_scale=0.7)
-    assert len(down) == len(want_down) == 12
+    assert len(down) == 12
     for i, (a, b) in enumerate(zip(down, want_down)):
         _close(a, b, f"down {i}")
     _close(mid, want_mid, "mid")
@@ -234,9 +249,9 @@ def test_proj_plus_matches_jax(stacks, shortcut):
     rng = np.random.default_rng(2)
     ids = rng.standard_normal((2, 16)).astype(np.float32)
     clip = rng.standard_normal((2, 17, 48)).astype(np.float32)
-    want = jresampler.apply_proj_plus(
-        jm.params["proj_plus"], jm.projplus_cfg, jnp.asarray(ids),
-        jnp.asarray(clip), shortcut=shortcut, scale=0.6)
+    want = jax.jit(lambda p, a, c: jresampler.apply_proj_plus(
+        p, jm.projplus_cfg, a, c, shortcut=shortcut, scale=0.6))(
+        jm.params["proj_plus"], jnp.asarray(ids), jnp.asarray(clip))
     with torch.inference_mode():
         got = port.proj_plus(_t(ids), _t(clip), shortcut=shortcut, scale=0.6)
     _close(got, want, "face tokens")
@@ -250,13 +265,9 @@ PICO = dict(block_out_channels=(16, 32), down_block_has_attn=(True, False),
             attention_num_heads=4, norm_num_groups=8)
 
 
-def test_unet_conditioning_branches_match_jax():
-    """UNet eps at a CFG batch of 2 against `unet.apply`: (a) dual-KV
-    garment self-attention with ref_scale [0, 0.8], the IP-Adapter branch
-    (4 face tokens, ip_scale [0.3, 0.9]), the garment-cross branch (6
-    tokens) and the ControlNet residuals on every skip and the mid output;
-    (b) the `concat` self-attention (garment K/V joined to the key source,
-    2S keys under one softmax)."""
+def _pico_case():
+    """The PICO UNet's JAX config and parameters (0.2 * N(0, 1), numpy) and
+    the inputs of `test_unet_conditioning_branches_match_jax`."""
     jcfg = JaxUNetConfig(**PICO)
     rng = np.random.default_rng(3)
     shapes = jax.eval_shape(lambda: junet.init(jax.random.PRNGKey(0), jcfg))
@@ -282,21 +293,23 @@ def test_unet_conditioning_branches_match_jax():
     down_res = tuple((0.3 * rng.standard_normal(s.shape)).astype(np.float32)
                      for s in skips)
     mid_res = (0.3 * rng.standard_normal(mid.shape)).astype(np.float32)
-    ref_scale = np.array([0.0, 0.8], np.float32)
-    ip_scale = np.array([0.3, 0.9], np.float32)
+    return jcfg, params, dict(
+        x=x, t=t, ctx=ctx, ref_kv=ref_kv, ip_kv=ip_kv, cross_ref=cross_ref,
+        down=down_res, mid=mid_res,
+        ref_scale=np.array([0.0, 0.8], np.float32),
+        ip_scale=np.array([0.3, 0.9], np.float32))
 
-    @jax.jit
-    def jax_eps(params, x, t, ctx, ref_kv, ip_kv, cross_ref, down, mid):
-        a = junet.apply(params, jcfg, x, t, ctx, jcond.Conditioning(
-            ref_kv=ref_kv, ref_scale=ref_scale, ip_kv=ip_kv,
-            ip_scale=ip_scale, ref_cross_kv=cross_ref,
-            down_block_residuals=down, mid_block_residual=mid))
-        b = junet.apply(params, jcfg, x, t, ctx, jcond.Conditioning(
-            ref_kv=ref_kv, ref_mode="concat"))
-        return a, b
 
-    want_a, want_b = jax_eps(params, x, t, ctx, ref_kv, ip_kv, cross_ref,
-                             down_res, mid_res)
+def test_unet_conditioning_branches_match_jax(modules_golden):
+    """UNet eps at a CFG batch of 2 against `unet.apply` (its values in
+    MODULES_GOLDEN, see `record_modules_golden`): (a) dual-KV garment
+    self-attention with ref_scale [0, 0.8], the IP-Adapter branch (4 face
+    tokens, ip_scale [0.3, 0.9]), the garment-cross branch (6 tokens) and
+    the ControlNet residuals on every skip and the mid output; (b) the
+    `concat` self-attention (garment K/V joined to the key source, 2S keys
+    under one softmax)."""
+    _, params, c = _pico_case()
+    x, t, ctx, ref_kv = c["x"], c["t"], c["ctx"], c["ref_kv"]
     unet = UNet(UNetConfig(**PICO)).eval()
     unet.load_state_dict(state_dict_from_jax(jax.tree.map(np.asarray,
                                                           params)))
@@ -306,15 +319,17 @@ def test_unet_conditioning_branches_match_jax():
 
     with torch.inference_mode():
         got_a = unet(_t(x), _t(t, torch.long), _t(ctx), Conditioning(
-            ref_kv=tkv(ref_kv), ref_scale=_t(ref_scale), ip_kv=tkv(ip_kv),
-            ip_scale=_t(ip_scale), ref_cross_kv=tkv(cross_ref),
-            down_block_residuals=[_t(r) for r in down_res],
-            mid_block_residual=_t(mid_res)))
+            ref_kv=tkv(ref_kv), ref_scale=_t(c["ref_scale"]),
+            ip_kv=tkv(c["ip_kv"]), ip_scale=_t(c["ip_scale"]),
+            ref_cross_kv=tkv(c["cross_ref"]),
+            down_block_residuals=[_t(r) for r in c["down"]],
+            mid_block_residual=_t(c["mid"])))
         got_b = unet(_t(x), _t(t, torch.long), _t(ctx), Conditioning(
             ref_kv=tkv(ref_kv), ref_mode="concat"))
         plain = unet(_t(x), _t(t, torch.long), _t(ctx))
-    _close(got_a, want_a, "parallel + ip + ref-cross + residuals")
-    _close(got_b, want_b, "concat")
+    _close(got_a, modules_golden["unet_parallel"],
+           "parallel + ip + ref-cross + residuals")
+    _close(got_b, modules_golden["unet_concat"], "concat")
     # each variant is live
     assert float((got_a - plain).abs().max()) > 1e-3
     assert float((got_b - plain).abs().max()) > 1e-3
@@ -411,49 +426,24 @@ def test_mask_resize_matches_jax_nearest(src, dst):
 
 @pytest.mark.parametrize("preset", ["pose", "ipa_pose", "inpaint"])
 def test_replays_ref_synthetic_preset(stacks, preset):
-    """`tools/record_reference.compute_with_stack`'s preset stages: the
-    step-0 ControlNet residuals (exactly zero: the golden's ControlNet is
-    fresh; checked for shape and value with the unperturbed ControlNet), the
-    ProjPlus face tokens, the person latents, the mask at the latent size
-    and the step-0 inpaint recomposition."""
+    """The preset stages of the port's `tools/record_reference.
+    compute_with_stack`: the step-0 ControlNet residuals (exactly zero: the
+    golden's ControlNet is fresh; checked for shape and value with the
+    unperturbed ControlNet), the ProjPlus face tokens, the person latents,
+    the mask at the latent size and the step-0 inpaint recomposition."""
     _, port, plain_cn = stacks
     g = dict(np.load(os.path.join(GOLDENS, f"ref_synthetic_{preset}.npz")))
-    m = port
-    sched = ddim.make_schedule()
-    steps = int(g["steps"])
-    ts = ddim.timesteps(sched, steps)
-    lat0 = _t(g["init_latents_nhwc"])
-    got = {}
-    with torch.inference_mode():
-        text = m.text(_t(g["prompt_ids"], torch.long))
-        if "cn_mid_res_step0" in g:
-            down, mid = plain_cn(lat0, int(ts[0]), text,
-                                 cond_emb=plain_cn.cond_embedding(
-                                     _t(g["pose_cond_nhwc"])))
-            got.update({f"cn_down_res_step0::{i:02d}": r
-                        for i, r in enumerate(down)})
-            got["cn_mid_res_step0"] = mid
-        if "face_tokens" in g:
-            face = m.vision(_t(g["face_clip_pixels_nhwc"]), penultimate=True)
-            got["face_clip_penult"] = face
-            got["face_tokens"] = m.proj_plus(_t(g["faceid_embeds"]), face,
-                                             shortcut=True, scale=1.0)
-        if "recomposed_latents_step0_nhwc" in g:
-            image_latents = m.vae.encode_mean(_t(g["person_image_nhwc"])) \
-                * m.vae_cfg.scaling_factor
-            mask = resize_nearest(_t(g["mask_image_nhwc"]), *lat0.shape[1:3])
-            eps0 = m.unet(lat0, int(ts[0]), text)
-            lat1 = ddim.step(sched, eps0, int(ts[0]), lat0, steps)
-            known = ddim.add_noise(sched, image_latents, lat0, int(ts[1]))
-            got["image_latents_nhwc"] = image_latents
-            got["mask_latent_nhwc"] = mask
-            got["recomposed_latents_step0_nhwc"] = (1.0 - mask) * known \
-                + mask * lat1
+    extra = tuple(s.split("::")[0] for s in PRESET_EXTRA_SPEC[preset])
+    inputs = {k: v for k, v in g.items()
+              if k in INPUT_KEYS or k.startswith(extra)}
+    computed = compute_with_stack(
+        inputs, dataclasses.replace(port, controlnet=plain_cn))
+    got = {k: v for k, v in computed.items() if k.startswith(extra)}
     assert len(got) == {"pose": 13, "ipa_pose": 15, "inpaint": 3}[preset]
     for k, v in got.items():
         _close(v, g[k], k)
     if "mask_latent_nhwc" in g:  # the resize convention shows here
-        np.testing.assert_array_equal(got["mask_latent_nhwc"].numpy(),
+        np.testing.assert_array_equal(got["mask_latent_nhwc"],
                                       g["mask_latent_nhwc"])
 
 
@@ -492,6 +482,49 @@ def test_preset_pipeline_matches_jax_golden(stacks, presets_golden, case):
     assert out.dtype == np.float32 and out.shape == (1, 64, 64, 3)
     np.testing.assert_allclose(out, presets_golden[case].astype(np.float32),
                                atol=2e-3)
+
+
+def record_modules_golden():
+    """The JAX functions the module tests hold the port against: the
+    perturbed ControlNet's residuals on `_controlnet_inputs` (jitted
+    `controlnet.apply`) and the PICO UNet's two conditioning cases
+    (`unet.apply`)."""
+    jm, _, _ = _jax_stack()
+    lat, t, text, pose = _controlnet_inputs()
+    down, mid = jax.jit(lambda p, x, tt, c, img: jcontrolnet.apply(
+        p, jm.controlnet_cfg, x, tt, c, cond_image=img,
+        conditioning_scale=0.7))(jm.params["controlnet"], lat, t, text, pose)
+    out = {f"cn_down_{i:02d}": r for i, r in enumerate(down)}
+    out["cn_mid"] = mid
+    jcfg, params, c = _pico_case()
+
+    @jax.jit
+    def jax_eps(params, c):
+        a = junet.apply(params, jcfg, c["x"], c["t"], c["ctx"],
+                        jcond.Conditioning(
+                            ref_kv=c["ref_kv"], ref_scale=c["ref_scale"],
+                            ip_kv=c["ip_kv"], ip_scale=c["ip_scale"],
+                            ref_cross_kv=c["cross_ref"],
+                            down_block_residuals=c["down"],
+                            mid_block_residual=c["mid"]))
+        b = junet.apply(params, jcfg, c["x"], c["t"], c["ctx"],
+                        jcond.Conditioning(ref_kv=c["ref_kv"],
+                                           ref_mode="concat"))
+        return a, b
+
+    out["unet_parallel"], out["unet_concat"] = jax_eps(params, c)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+@pytest.mark.slow
+def test_modules_golden_is_current(modules_golden):
+    """The stored module outputs against a live recompute with the JAX
+    package."""
+    live = record_modules_golden()
+    assert set(live) == set(modules_golden)
+    for k, v in live.items():
+        np.testing.assert_allclose(v, modules_golden[k], rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
 
 
 @pytest.mark.slow
@@ -645,8 +678,11 @@ if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_threefry_partitionable", True)
     # `python tests/test_torch_presets.py stack` re-records the stack's
-    # parameters; without an argument, the presets golden
+    # parameters, `... modules` the module outputs; without an argument,
+    # the presets golden
     path, record = ((STACK_GOLDEN, record_small_stack) if "stack" in sys.argv
+                    else (MODULES_GOLDEN, record_modules_golden)
+                    if "modules" in sys.argv
                     else (PRESETS_GOLDEN, record_presets_golden))
     np.savez_compressed(path, **record())
     print("wrote", path, os.path.getsize(path), "bytes")
