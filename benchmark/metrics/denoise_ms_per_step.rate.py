@@ -1,0 +1,13 @@
+"""denoise_ms_per_step.rate: The pipeline's own stage clock: the denoise stage
+over its steps, median over the window's calls at the full batch of 4."""
+
+from benchmark.lib import readers
+
+LAYER = "pipelines.dressing"
+UNIT = "ms"
+SOURCE = "program_span"
+MOVES = "images_per_min"
+
+
+def read(run):
+    return readers.denoise_ms_per_step(run, 4)
