@@ -36,6 +36,11 @@ imagdressing_tpu_torch.apps.dress --data_parallel 4 ...`); the ranks join
 over NCCL, each on its own GPU, and rank 0 writes the images. The batch is
 at least N. Asking for more GPUs than are visible raises (no CPU stands
 in); `--allow_cpu_mesh` runs CPU ranks over gloo (tests).
+
+Spans (`core.profiling`, while a profiler session runs): `dress.chunk`
+a chunk (its index the trace_id), over the `image.*` spans of its inputs,
+the pipeline's `pipeline.call`, and `dress.collage` (the collages' resize,
+grid and write).
 """
 
 from __future__ import annotations
@@ -137,6 +142,7 @@ def _dress(args, mesh):
         merge_trained_checkpoint,
     )
     from imagdressing_tpu_torch.apps.tokenizer import load_tokenizer
+    from imagdressing_tpu_torch.core import profiling
     from imagdressing_tpu_torch.core.config import PRESETS
     from imagdressing_tpu_torch.pipelines.dressing import DressingPipeline
 
@@ -254,44 +260,49 @@ def _dress(args, mesh):
 
     bs = max(1, args.batch_size, 1 if mesh is None else mesh.data)
     for start in range(0, len(items), bs):
-        chunk = items[start:start + bs]
-        n_real = len(chunk)
-        # pad the ragged final chunk by repeating its last row: one batch
-        # size for the whole run
-        if n_real < bs and start > 0:
-            chunk = chunk + [chunk[-1]] * (bs - n_real)
-        prepped = [iu.prepare_garment(item[0], preset.height, preset.width,
-                                      clip_size=models.vision_cfg.image_size)
-                   for item in chunk]
-        extras = [extras_for(*item[1:]) for item in chunk]
-        b = len(chunk)
-        # every row carries the same factor kinds (the lists are homogeneous)
-        batched_extra = {k: np.concatenate([e[k] for e in extras])
-                         for k in extras[0]}
-        out = pipe(
-            prompt_ids=np.repeat(tokenizer(prompt)[None], b, axis=0),
-            negative_prompt_ids=np.repeat(tokenizer(negative)[None], b,
-                                          axis=0),
-            ref_image=np.concatenate([p[0] for p in prepped]),
-            ref_clip_image=np.concatenate([p[1] for p in prepped]),
-            seed=args.seed,
-            num_inference_steps=args.num_inference_steps,
-            guidance_scale=args.guidance_scale,
-            image_scale=args.image_scale,
-            controlnet_scale=args.controlnet_scale,
-            control_guidance_start=args.control_guidance_start,
-            control_guidance_end=args.control_guidance_end,
-            eta=args.eta,
-            **batched_extra,
-        )
-        for i, item in enumerate(chunk[:n_real] if writer else ()):
-            garment = iu.resize(prepped[i][2], (preset.width, preset.height),
-                                "bicubic")
-            collage = iu.image_grid([garment] + iu.to_uint8(out[i:i + 1]),
-                                    1, 2)
-            name = out_name(item)
-            iu.write_image(os.path.join(args.output_path, name), collage)
-            print("saved", name, flush=True)
+        with profiling.span("dress.chunk", trace_id=start // bs):
+            chunk = items[start:start + bs]
+            n_real = len(chunk)
+            # pad the ragged final chunk by repeating its last row: one
+            # batch size for the whole run
+            if n_real < bs and start > 0:
+                chunk = chunk + [chunk[-1]] * (bs - n_real)
+            prepped = [iu.prepare_garment(
+                item[0], preset.height, preset.width,
+                clip_size=models.vision_cfg.image_size) for item in chunk]
+            extras = [extras_for(*item[1:]) for item in chunk]
+            b = len(chunk)
+            # every row carries the same factor kinds (the lists are
+            # homogeneous)
+            batched_extra = {k: np.concatenate([e[k] for e in extras])
+                             for k in extras[0]}
+            out = pipe(
+                prompt_ids=np.repeat(tokenizer(prompt)[None], b, axis=0),
+                negative_prompt_ids=np.repeat(tokenizer(negative)[None], b,
+                                              axis=0),
+                ref_image=np.concatenate([p[0] for p in prepped]),
+                ref_clip_image=np.concatenate([p[1] for p in prepped]),
+                seed=args.seed,
+                num_inference_steps=args.num_inference_steps,
+                guidance_scale=args.guidance_scale,
+                image_scale=args.image_scale,
+                controlnet_scale=args.controlnet_scale,
+                control_guidance_start=args.control_guidance_start,
+                control_guidance_end=args.control_guidance_end,
+                eta=args.eta,
+                **batched_extra,
+            )
+            with profiling.span("dress.collage"):
+                for i, item in enumerate(chunk[:n_real] if writer else ()):
+                    garment = iu.resize(prepped[i][2],
+                                        (preset.width, preset.height),
+                                        "bicubic")
+                    collage = iu.image_grid(
+                        [garment] + iu.to_uint8(out[i:i + 1]), 1, 2)
+                    name = out_name(item)
+                    iu.write_image(os.path.join(args.output_path, name),
+                                   collage)
+                    print("saved", name, flush=True)
 
 
 if __name__ == "__main__":

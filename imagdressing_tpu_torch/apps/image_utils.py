@@ -10,6 +10,11 @@ prepare_garment: Resize(640, 512) + Normalize(0.5) VAE view plus the CLIP
 Files: PNG is read and written by `apps/png.py` (no imaging library);
 JPEG and the other formats go through PIL where it is installed, and raise
 a RuntimeError naming the format where it is not.
+
+Spans (`core.profiling.span`, recorded while a profiler session runs):
+`image.read` (bytes, pixels), `image.write` (bytes) and
+`image.prepare_garment` (the parent of its read and resizes); the resizes
+are `image.resize` (`train/data.py`).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 
 from imagdressing_tpu_torch.apps.png import SIGNATURE, decode_png, encode_png
+from imagdressing_tpu_torch.core import profiling
 from imagdressing_tpu_torch.train.data import clip_preprocess_np, resize
 
 DEFAULT_PROMPT = "A beautiful woman, best quality, high quality"
@@ -52,15 +58,19 @@ def to_rgb(img: np.ndarray) -> np.ndarray:
 
 def read_image(src: Union[str, bytes]) -> np.ndarray:
     """A file path or the file's bytes -> uint8 RGB (H, W, 3)."""
-    if isinstance(src, (str, os.PathLike)):
-        with open(src, "rb") as f:
-            data = f.read()
-    else:
-        data = bytes(src)
-    if data[:8] == SIGNATURE:
-        return to_rgb(decode_png(data))
-    image = _pil("reading a non-PNG image (JPEG, ...)")
-    return np.asarray(image.open(io.BytesIO(data)).convert("RGB"))
+    with profiling.span("image.read") as sp:
+        if isinstance(src, (str, os.PathLike)):
+            with open(src, "rb") as f:
+                data = f.read()
+        else:
+            data = bytes(src)
+        if data[:8] == SIGNATURE:
+            img = to_rgb(decode_png(data))
+        else:
+            image = _pil("reading a non-PNG image (JPEG, ...)")
+            img = np.asarray(image.open(io.BytesIO(data)).convert("RGB"))
+        sp.set(bytes=len(data), pixels=img.shape[0] * img.shape[1])
+        return img
 
 
 def write_image(path: str, img: np.ndarray,
@@ -68,13 +78,17 @@ def write_image(path: str, img: np.ndarray,
     """uint8 (H, W, 3) -> `path`, in the format of its extension: .png by
     `encode_png`, any other through PIL (`quality`: the JPEG quality,
     PIL's default 75 where None)."""
-    if path.lower().endswith(".png"):
-        with open(path, "wb") as f:
-            f.write(encode_png(img))
-        return
-    extra = {} if quality is None else {"quality": quality}
-    _pil(f"writing {os.path.basename(path)}").fromarray(
-        np.ascontiguousarray(img)).save(path, **extra)
+    with profiling.span("image.write") as sp:
+        if path.lower().endswith(".png"):
+            data = encode_png(img)
+            with open(path, "wb") as f:
+                f.write(data)
+            sp.set(bytes=len(data))
+            return
+        extra = {} if quality is None else {"quality": quality}
+        _pil(f"writing {os.path.basename(path)}").fromarray(
+            np.ascontiguousarray(img)).save(path, **extra)
+        sp.set(bytes=os.path.getsize(path))
 
 
 def resize_img(img: np.ndarray, max_side: int = 640, min_side: int = 512,
@@ -110,9 +124,11 @@ def prepare_garment(path: Union[str, bytes], height: int = 640,
                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """-> (ref_image (1,H,W,3) in [-1,1], ref_clip_image
     (1,clip_size,clip_size,3), the resized uint8 garment for collages)."""
-    img = resize_img(read_image(path))
-    vae_view = resize(img, (width, height)).astype(np.float32) / 127.5 - 1.0
-    clip_view = clip_preprocess_np(img, size=clip_size)
+    with profiling.span("image.prepare_garment"):
+        img = resize_img(read_image(path))
+        vae_view = resize(img, (width, height)).astype(np.float32) \
+            / 127.5 - 1.0
+        clip_view = clip_preprocess_np(img, size=clip_size)
     return vae_view[None], clip_view[None], img
 
 

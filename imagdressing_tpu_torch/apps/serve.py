@@ -27,6 +27,13 @@ every rank runs the call (`follow`): the batch's rows split over the data
 ranks, the UNets over the model ranks. An idle server sends a heartbeat so
 that the other ranks' wait stays within the group's timeout. Asking for
 more GPUs than are visible raises.
+
+Spans (`core.profiling`, while a profiler session runs), all of one
+request under its trace_id: `serve.decode` (the body's base64 and image
+decode, the garment's preparation), `serve.queue` (from the queue's put
+to the start of the round that takes it), `serve.round` (batch; the
+trace_id of its first request, `trace_ids` all of them; the pipeline's
+`pipeline.call` inside) and `serve.encode` (the result's PNG and base64).
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ import numpy as np
 
 from imagdressing_tpu_torch.apps import image_utils as iu
 from imagdressing_tpu_torch.apps.png import encode_png
+from imagdressing_tpu_torch.core import profiling
 from imagdressing_tpu_torch.train.data import clip_preprocess_np
 
 # seconds between the idle server's heartbeats to the other ranks
@@ -65,6 +73,8 @@ Seed: <input name=seed value=42 size=8><br>
 @dataclass
 class _Request:
     payload: Dict[str, Any]
+    trace_id: int
+    t_put: float  # monotonic, when it was queued
     event: threading.Event = field(default_factory=threading.Event)
     result: Optional[Dict[str, Any]] = None
 
@@ -88,8 +98,12 @@ class InferenceWorker:
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
-    def submit(self, payload: Dict[str, Any]) -> Dict[str, Any]:
-        req = _Request(payload)
+    def submit(self, payload: Dict[str, Any],
+               trace_id: Optional[int] = None) -> Dict[str, Any]:
+        """Queue one request and wait for its result; `trace_id`: its
+        spans' (a new one where None)."""
+        req = _Request(payload, profiling.next_trace_id()
+                       if trace_id is None else trace_id, time.monotonic())
         self.queue.put(req)
         req.event.wait()
         assert req.result is not None
@@ -124,41 +138,17 @@ class InferenceWorker:
     def _loop(self):
         while True:
             batch = self._collect()
+            t_round = time.monotonic()
+            for r in batch:
+                profiling.record("serve.queue", r.t_put, t_round,
+                                 trace_id=r.trace_id)
             t0 = time.perf_counter()
             try:
-                prompts = np.stack(
-                    [self.tokenizer(r.payload["prompt"]) for r in batch])
-                negatives = np.stack([
-                    self.tokenizer(r.payload.get("negative_prompt",
-                                                 iu.DEFAULT_NEGATIVE))
-                    for r in batch])
-                refs = np.concatenate([r.payload["ref_image"] for r in batch])
-                clips = np.concatenate(
-                    [r.payload["ref_clip_image"] for r in batch])
-                first = batch[0].payload
-                out = self.pipe(
-                    prompt_ids=prompts,
-                    negative_prompt_ids=negatives,
-                    ref_image=refs,
-                    ref_clip_image=clips,
-                    seed=int(first.get("seed", 42)),
-                    num_inference_steps=int(first.get("steps") or 0) or None,
-                    guidance_scale=first.get("guidance_scale"),
-                    image_scale=first.get("image_scale"),
-                    # the serving contract: uint8 readback, a quarter of the
-                    # float bytes; _png_b64 consumes it as-is
-                    output_uint8=True,
-                )
-                dt = time.perf_counter() - t0
-                for i, r in enumerate(batch):
-                    img = out[i]
-                    if self.post_process is not None:
-                        img01 = self.post_process(
-                            img.astype(np.float32) / 255.0, r.payload)
-                        img = np.clip(np.asarray(img01, np.float32) * 255.0,
-                                      0, 255).round().astype(np.uint8)
-                    r.result = {"image": img, "latency_s": dt}
-                    r.event.set()
+                with profiling.span("serve.round",
+                                    trace_id=batch[0].trace_id,
+                                    batch=len(batch),
+                                    trace_ids=[r.trace_id for r in batch]):
+                    self._round(batch, t0)
             except Exception as e:  # noqa: BLE001 - report errors per request
                 for r in batch:
                     if r.event.is_set():
@@ -166,6 +156,41 @@ class InferenceWorker:
                         # on a LATER batch member): don't clobber
                     r.result = {"error": f"{type(e).__name__}: {e}"}
                     r.event.set()
+
+    def _round(self, batch: List[_Request], t0: float) -> None:
+        """One pipeline call for the batch; each request answered."""
+        prompts = np.stack(
+            [self.tokenizer(r.payload["prompt"]) for r in batch])
+        negatives = np.stack([
+            self.tokenizer(r.payload.get("negative_prompt",
+                                         iu.DEFAULT_NEGATIVE))
+            for r in batch])
+        refs = np.concatenate([r.payload["ref_image"] for r in batch])
+        clips = np.concatenate([r.payload["ref_clip_image"] for r in batch])
+        first = batch[0].payload
+        out = self.pipe(
+            prompt_ids=prompts,
+            negative_prompt_ids=negatives,
+            ref_image=refs,
+            ref_clip_image=clips,
+            seed=int(first.get("seed", 42)),
+            num_inference_steps=int(first.get("steps") or 0) or None,
+            guidance_scale=first.get("guidance_scale"),
+            image_scale=first.get("image_scale"),
+            # the serving contract: uint8 readback, a quarter of the float
+            # bytes; _png_b64 consumes it as-is
+            output_uint8=True,
+        )
+        dt = time.perf_counter() - t0
+        for i, r in enumerate(batch):
+            img = out[i]
+            if self.post_process is not None:
+                img01 = self.post_process(
+                    img.astype(np.float32) / 255.0, r.payload)
+                img = np.clip(np.asarray(img01, np.float32) * 255.0,
+                              0, 255).round().astype(np.uint8)
+            r.result = {"image": img, "latency_s": dt}
+            r.event.set()
 
 
 class MeshPipe:
@@ -255,27 +280,31 @@ def make_handler(worker: InferenceWorker, preset):
         def do_POST(self):
             length = int(self.headers.get("Content-Length", "0"))
             raw = self.rfile.read(length)
+            trace_id = profiling.next_trace_id()
             try:
-                if self.path == "/dress":
-                    payload = json.loads(raw)
-                    cloth = iu.read_image(
-                        base64.b64decode(payload.pop("cloth_image")))
-                elif self.path == "/dress_form":
-                    payload, cloth = _parse_multipart(
-                        raw, self.headers.get("Content-Type", ""))
-                else:
-                    self._send(404, b"not found", "text/plain")
-                    return
-                payload["ref_image"], payload["ref_clip_image"] = \
-                    garment_inputs(cloth, preset,
-                                   worker.pipe.models.vision_cfg.image_size)
+                with profiling.span("serve.decode", trace_id=trace_id):
+                    if self.path == "/dress":
+                        payload = json.loads(raw)
+                        cloth = iu.read_image(
+                            base64.b64decode(payload.pop("cloth_image")))
+                    elif self.path == "/dress_form":
+                        payload, cloth = _parse_multipart(
+                            raw, self.headers.get("Content-Type", ""))
+                    else:
+                        self._send(404, b"not found", "text/plain")
+                        return
+                    payload["ref_image"], payload["ref_clip_image"] = \
+                        garment_inputs(
+                            cloth, preset,
+                            worker.pipe.models.vision_cfg.image_size)
                 payload.setdefault("prompt", iu.DEFAULT_PROMPT)
-                result = worker.submit(payload)
+                result = worker.submit(payload, trace_id)
                 if "error" in result:
                     self._send(500, json.dumps(result).encode(),
                                "application/json")
                     return
-                b64 = _png_b64(result["image"])
+                with profiling.span("serve.encode", trace_id=trace_id):
+                    b64 = _png_b64(result["image"])
                 if self.path == "/dress_form":
                     html = (f"<img src='data:image/png;base64,{b64}'>"
                             f"<p>{result['latency_s']:.2f}s</p>")

@@ -34,9 +34,10 @@ eta > 0 noise of each data rank comes from its own stream.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -44,6 +45,7 @@ from torch import nn
 
 from imagdressing_tpu_torch.convert import params_from_jax
 from imagdressing_tpu_torch.core import mesh as mesh_lib
+from imagdressing_tpu_torch.core import profiling
 from imagdressing_tpu_torch.core import tp as tp_lib
 from imagdressing_tpu_torch.core.config import (
     SAMPLERS,
@@ -267,20 +269,69 @@ class DressingModels:
 
 
 class _StageClock:
-    """Wall seconds per pipeline stage; on a card each stage ends with a
-    device synchronise, so a stage's time is its device work."""
+    """Seconds per pipeline stage, in order, each stage a `with
+    stage(name)` block and a child span of `pipeline.call` (its host time
+    is the time to enqueue it). A stage runs from the end of the one
+    before (the first from the clock's start) to its own end. On a card
+    the boundaries are CUDA events, read in `finish` after the call's
+    final copy to the host, so a stage's time is the device's and no
+    stage synchronises the device; on the CPU they are the host clock.
+    `device_time(key)` times a block on the card into the innermost open
+    span's attribute `key`, while spans record."""
 
     def __init__(self, device: torch.device):
         self.device = device
+        self.cuda = device.type == "cuda"
         self.seconds: Dict[str, float] = {}
-        self._t = time.perf_counter()
+        self._start = self._now()
+        self._ends = []  # (stage, its end)
+        self._timed = []  # (span record, attribute, start, end)
 
-    def mark(self, stage: str) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.seconds[stage] = now - self._t
-        self._t = now
+    def _now(self):
+        if not self.cuda:
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
+    @contextlib.contextmanager
+    def stage(self, name: str) -> Iterator[None]:
+        with profiling.span(name):
+            yield
+            self._ends.append((name, self._now()))
+
+    def device_time(self, key: str):
+        record = profiling.current() \
+            if self.cuda and profiling.recording() else None
+        return _UNTIMED if record is None else self._time(record, key)
+
+    @contextlib.contextmanager
+    def _time(self, record, key: str) -> Iterator[None]:
+        start = self._now()
+        yield
+        self._timed.append((record, key, start, self._now()))
+
+    def finish(self) -> Dict[str, float]:
+        """The stages' seconds; call after the call's copy to the host (on
+        a card the last event then waits for nothing)."""
+        if self.cuda:
+            self._ends[-1][1].synchronize()
+
+            def between(a, b):
+                return a.elapsed_time(b) / 1e3
+        else:
+            def between(a, b):
+                return b - a
+        prev = self._start
+        for name, end in self._ends:
+            self.seconds[name] = between(prev, end)
+            prev = end
+        for record, key, start, end in self._timed:
+            record["attrs"][key] = between(start, end)
+        return self.seconds
+
+
+_UNTIMED = contextlib.nullcontext()
 
 
 def resize_nearest(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -332,7 +383,11 @@ def _pad_rows(x, n: int):
 class DressingPipeline:
     """Callable dressing pipeline for one preset. The argument names follow
     the JAX package's `DressingPipeline.__call__`; arrays are NHWC. After
-    each call `last_stage_seconds` holds the per-stage wall times."""
+    each call `last_stage_seconds` holds each stage's seconds, in order
+    (on a card the device's, from CUDA events; on the CPU the host's).
+    While a profiler session runs, a call records the spans
+    `pipeline.call` (batch, steps, preset), a child per stage, and a
+    `denoise.step` per sampling step (`core.profiling.span`)."""
 
     def __init__(self, models: DressingModels, preset: PipelineConfig,
                  sched_cfg: SchedulerConfig = SchedulerConfig(), *,
@@ -412,23 +467,30 @@ class DressingPipeline:
                     output_uint8=output_uint8,
                     seed=self.preset.seed if seed is None else seed)
         data = 1 if self.mesh is None else self.mesh.data
-        if data == 1:
-            return self._generate(**rows, **call)
         b_user = ref_image.shape[0]
-        b = -(-b_user // data) * data
-        if latents is None:
-            # the padded global batch's noise, as one device would draw it
-            f = 2 ** (len(self.models.vae_cfg.block_out_channels) - 1)
-            gen = torch.Generator(device=self.device).manual_seed(
-                call["seed"])
-            rows["latents"] = torch.randn(
-                (b, self.preset.height // f, self.preset.width // f, 4),
-                generator=gen, device=self.device)
-        lo = self.mesh.data_rank * (b // data)
-        local = {k: None if v is None else _pad_rows(v, b)[lo:lo + b // data]
-                 for k, v in rows.items()}
-        return self._generate(**local, **call, eta_shard=self.mesh.data_rank,
-                              gather=True)[:b_user]
+        with profiling.span("pipeline.call", batch=int(b_user),
+                            steps=int(num_inference_steps
+                                      or self.preset.num_inference_steps),
+                            preset=self.preset.name):
+            if data == 1:
+                return self._generate(**rows, **call)
+            b = -(-b_user // data) * data
+            if latents is None:
+                # the padded global batch's noise, as one device would draw
+                # it
+                f = 2 ** (len(self.models.vae_cfg.block_out_channels) - 1)
+                gen = torch.Generator(device=self.device).manual_seed(
+                    call["seed"])
+                rows["latents"] = torch.randn(
+                    (b, self.preset.height // f, self.preset.width // f, 4),
+                    generator=gen, device=self.device)
+            lo = self.mesh.data_rank * (b // data)
+            local = {k: None if v is None
+                     else _pad_rows(v, b)[lo:lo + b // data]
+                     for k, v in rows.items()}
+            return self._generate(**local, **call,
+                                  eta_shard=self.mesh.data_rank,
+                                  gather=True)[:b_user]
 
     def _generate(self, *, prompt_ids, negative_prompt_ids, ref_image,
                   ref_clip_image, latents, seed, num_inference_steps,
@@ -463,41 +525,44 @@ class DressingPipeline:
         noise = self._tensor(latents, torch.float32)
 
         # 1. text encoding of [uncond; cond]
-        ids = torch.cat([self._tensor(negative_prompt_ids, torch.long),
-                         self._tensor(prompt_ids, torch.long)])
-        text_embeds = m.text(ids, clip_skip=p.clip_skip).to(cd)
-        clock.mark("text")
+        with clock.stage("text"):
+            ids = torch.cat([self._tensor(negative_prompt_ids, torch.long),
+                             self._tensor(prompt_ids, torch.long)])
+            text_embeds = m.text(ids, clip_skip=p.clip_skip).to(cd)
         # 2. garment tokens: CLIP-vision penultimate states -> Resampler
-        clip_hidden = m.vision(self._tensor(ref_clip_image, cd),
-                               penultimate=True)
-        cloth_tokens = m.resampler(clip_hidden)
-        clock.mark("garment_tokens")
+        with clock.stage("garment_tokens"):
+            clip_hidden = m.vision(self._tensor(ref_clip_image, cd),
+                                   penultimate=True)
+            cloth_tokens = m.resampler(clip_hidden)
         # 3. garment latents and the capture run (batch B, t = 0)
-        ref_latents = m.vae.encode_mean(ref_image.to(cd)) * sf
-        clock.mark("vae_encode")
-        _, captured = m.ref_unet(ref_latents, 0, cloth_tokens, capture=True)
-        clock.mark("garment_unet")
+        with clock.stage("vae_encode"):
+            ref_latents = m.vae.encode_mean(ref_image.to(cd)) * sf
+        with clock.stage("garment_unet"):
+            _, captured = m.ref_unet(ref_latents, 0, cloth_tokens,
+                                     capture=True)
         # 4. K/V hoisted out of the loop, duplicated for the CFG batch
-        ref_kv = {name: (torch.cat([k, k]), torch.cat([v, v]))
-                  for name, (k, v) in precompute_ref_kv(m.ref_adapters,
-                                                        captured).items()}
-        ref_scale = torch.cat([torch.zeros(b, device=dev),
-                               torch.full((b,), float(s), device=dev)])
-        cond = Conditioning(ref_kv=ref_kv, ref_scale=ref_scale,
-                            cross_kv=precompute_cross_kv(m.unet, text_embeds))
-        if p.use_ipa:
-            # face tokens of the cond half; the uncond half's from a zeroed
-            # id embedding and a zeroed face crop
-            face_clip = self._tensor(face_clip_image, cd)
-            faceid = self._tensor(faceid_embeds, cd)
-            tokens = [m.proj_plus(fid, m.vision(img, penultimate=True))
-                      for fid, img in ((torch.zeros_like(faceid),
-                                        torch.zeros_like(face_clip)),
-                                       (faceid, face_clip))]
-            cond.ip_kv = precompute_ip_kv(m.ip_adapters, torch.cat(tokens))
-            cond.ip_scale = torch.full((2 * b,), float(p.ipa_scale),
-                                       device=dev)
-        clock.mark("kv_precompute")
+        with clock.stage("kv_precompute"):
+            ref_kv = {name: (torch.cat([k, k]), torch.cat([v, v]))
+                      for name, (k, v) in precompute_ref_kv(
+                          m.ref_adapters, captured).items()}
+            ref_scale = torch.cat([torch.zeros(b, device=dev),
+                                   torch.full((b,), float(s), device=dev)])
+            cond = Conditioning(ref_kv=ref_kv, ref_scale=ref_scale,
+                                cross_kv=precompute_cross_kv(m.unet,
+                                                             text_embeds))
+            if p.use_ipa:
+                # face tokens of the cond half; the uncond half's from a
+                # zeroed id embedding and a zeroed face crop
+                face_clip = self._tensor(face_clip_image, cd)
+                faceid = self._tensor(faceid_embeds, cd)
+                tokens = [m.proj_plus(fid, m.vision(img, penultimate=True))
+                          for fid, img in ((torch.zeros_like(faceid),
+                                            torch.zeros_like(face_clip)),
+                                           (faceid, face_clip))]
+                cond.ip_kv = precompute_ip_kv(m.ip_adapters,
+                                              torch.cat(tokens))
+                cond.ip_scale = torch.full((2 * b,), float(p.ipa_scale),
+                                           device=dev)
 
         # 5. the schedule; inpaint: truncated by strength, the person latents
         #    and the mask at the latent size
@@ -506,25 +571,25 @@ class DressingPipeline:
         post_fn: Optional[ddim.PostStepFn] = None
         lat = noise * self.schedule.init_noise_sigma
         if p.use_inpaint:
-            t_start = max(steps - int(steps * p.strength), 0)
-            image_latents = (m.vae.encode_mean(
-                self._tensor(person_image, cd)) * sf).float()
-            if p.strength < 1.0:
-                lat = ddim.add_noise(self.schedule, image_latents, noise,
-                                     int(ts_full[t_start]))
-            mask = resize_nearest(self._tensor(mask_image, torch.float32),
-                                  *lat.shape[1:3])
-            keep_mask = 1.0 - mask
+            with clock.stage("person_encode"):
+                t_start = max(steps - int(steps * p.strength), 0)
+                image_latents = (m.vae.encode_mean(
+                    self._tensor(person_image, cd)) * sf).float()
+                if p.strength < 1.0:
+                    lat = ddim.add_noise(self.schedule, image_latents, noise,
+                                         int(ts_full[t_start]))
+                mask = resize_nearest(self._tensor(mask_image, torch.float32),
+                                      *lat.shape[1:3])
+                keep_mask = 1.0 - mask
 
-            def post_fn(x, t_next, is_last):
-                # re-noise the known region to the next timestep with the
-                # initial noise (the original latents after the last step)
-                # and paste it around the generated region
-                known = image_latents if is_last else ddim.add_noise(
-                    self.schedule, image_latents, noise, t_next)
-                return keep_mask * known + mask * x
+                def post_fn(x, t_next, is_last):
+                    # re-noise the known region to the next timestep with
+                    # the initial noise (the original latents after the last
+                    # step) and paste it around the generated region
+                    known = image_latents if is_last else ddim.add_noise(
+                        self.schedule, image_latents, noise, t_next)
+                    return keep_mask * known + mask * x
 
-            clock.mark("person_encode")
         ts_used = ts_full[t_start:]
         ts_dev = torch.as_tensor(ts_used.astype(np.int64), device=dev)
         t_of = {int(t): ts_dev[i] for i, t in enumerate(ts_used)}
@@ -532,58 +597,69 @@ class DressingPipeline:
         # 6. the ControlNet's conditioning embedding, text K/V and window
         control = {}
         if p.use_controlnet:
-            pose = self._tensor(pose_image, torch.float32)
-            keep = controlnet_keep(
-                len(ts_used),
-                p.control_guidance_start if control_guidance_start is None
-                else control_guidance_start,
-                p.control_guidance_end if control_guidance_end is None
-                else control_guidance_end)
-            control = dict(
-                cn_emb=m.controlnet.cond_embedding(torch.cat([pose, pose])),
-                cn_keep={int(t): k for t, k in zip(ts_used, keep)},
-                cn_scale=float(p.controlnet_conditioning_scale
-                               if controlnet_scale is None
-                               else controlnet_scale),
-                cn_cond=Conditioning(cross_kv=precompute_cross_kv(
-                    m.controlnet, text_embeds)))
-            clock.mark("control_embedding")
-        eps_fn = self._eps_fn(cond, text_embeds, t_of, g, **control)
+            with clock.stage("control_embedding"):
+                pose = self._tensor(pose_image, torch.float32)
+                keep = controlnet_keep(
+                    len(ts_used),
+                    p.control_guidance_start if control_guidance_start is None
+                    else control_guidance_start,
+                    p.control_guidance_end if control_guidance_end is None
+                    else control_guidance_end)
+                control = dict(
+                    cn_emb=m.controlnet.cond_embedding(
+                        torch.cat([pose, pose])),
+                    cn_keep={int(t): k for t, k in zip(ts_used, keep)},
+                    cn_scale=float(p.controlnet_conditioning_scale
+                                   if controlnet_scale is None
+                                   else controlnet_scale),
+                    cn_cond=Conditioning(cross_kv=precompute_cross_kv(
+                        m.controlnet, text_embeds)))
+        eps_fn = self._eps_fn(cond, text_embeds, t_of, g, clock, **control)
 
-        # 7. the sampling loop
-        if p.sampler == "ddim":
-            gen = (torch.Generator(device=dev).manual_seed(
-                eta_seed(seed, eta_shard)) if eta else None)
-            ts_next = ddim.next_timesteps(ts_used)
-            for i, t in enumerate(ts_used):
-                eps = eps_fn(lat, int(t))
-                step_noise = (torch.randn(lat.shape, generator=gen, device=dev)
-                              if eta else None)
-                # prev_t from the full step count, also when truncated
-                lat = ddim.step(self.schedule, eps, int(t), lat, steps,
-                                eta=eta, noise=step_noise)
-                if post_fn is not None:
-                    lat = post_fn(lat, int(ts_next[i]), i == len(ts_used) - 1)
-        else:
-            loop = unipc.sample_loop if p.sampler == "unipc" \
-                else dpm.sample_loop
-            lat = loop(self.schedule, eps_fn, lat, steps, t_start=t_start,
-                       post_fn=post_fn)
-        clock.mark("denoise")
-        # 8. decode
-        images = m.vae.decode((lat / sf).to(cd))
-        out = (images.float() * 0.5 + 0.5).clamp(0.0, 1.0)
-        if output_uint8:
-            out = torch.round(out * 255.0).to(torch.uint8)
-        if gather:
-            out = mesh_lib.all_gather(out, self.mesh.data_group)
-        out = out.cpu().numpy()
-        clock.mark("vae_decode")
-        self.last_stage_seconds = clock.seconds
+        # 7. the sampling loop, a `denoise.step` span a step
+        with clock.stage("denoise"):
+            if p.sampler == "ddim":
+                gen = (torch.Generator(device=dev).manual_seed(
+                    eta_seed(seed, eta_shard)) if eta else None)
+                ts_next = ddim.next_timesteps(ts_used)
+                for i, t in enumerate(ts_used):
+                    with profiling.span("denoise.step", t=int(t)):
+                        eps = eps_fn(lat, int(t))
+                        step_noise = (torch.randn(lat.shape, generator=gen,
+                                                  device=dev)
+                                      if eta else None)
+                        # prev_t from the full step count, also when
+                        # truncated
+                        lat = ddim.step(self.schedule, eps, int(t), lat,
+                                        steps, eta=eta, noise=step_noise)
+                        if post_fn is not None:
+                            lat = post_fn(lat, int(ts_next[i]),
+                                          i == len(ts_used) - 1)
+            else:
+                loop = unipc.sample_loop if p.sampler == "unipc" \
+                    else dpm.sample_loop
+
+                def stepped(x, t):
+                    with profiling.span("denoise.step", t=t):
+                        return eps_fn(x, t)
+
+                lat = loop(self.schedule, stepped, lat, steps,
+                           t_start=t_start, post_fn=post_fn)
+        # 8. decode, and the copy to the host that ends the call
+        with clock.stage("vae_decode"):
+            images = m.vae.decode((lat / sf).to(cd))
+            out = (images.float() * 0.5 + 0.5).clamp(0.0, 1.0)
+            if output_uint8:
+                out = torch.round(out * 255.0).to(torch.uint8)
+            if gather:
+                out = mesh_lib.all_gather(out, self.mesh.data_group)
+            out = out.cpu().numpy()
+        self.last_stage_seconds = clock.finish()
         return out
 
     def _eps_fn(self, cond: Conditioning, text_embeds: torch.Tensor,
-                t_of: Dict[int, torch.Tensor], guidance: float, *,
+                t_of: Dict[int, torch.Tensor], guidance: float,
+                clock: _StageClock, *,
                 cn_emb: Optional[torch.Tensor] = None,
                 cn_keep: Optional[Dict[int, bool]] = None,
                 cn_scale: float = 1.0,
@@ -591,7 +667,9 @@ class DressingPipeline:
                 ) -> Callable[[torch.Tensor, int], torch.Tensor]:
         """eps(lat, t): one CFG-batched UNet call (and ControlNet call, on
         the steps its window keeps; on the others its residuals would be
-        exactly zero) at integer timestep t, the guidance applied."""
+        exactly zero) at integer timestep t, the guidance applied. While
+        spans record on a card, the two calls' device seconds go to the
+        step's span (`controlnet_device_s`, `unet_device_s`)."""
         m = self.models
         cd = m.dtype
 
@@ -600,13 +678,15 @@ class DressingPipeline:
             tt = t_of[t]
             step_cond = cond
             if cn_emb is not None and cn_keep[t]:
-                down, mid = m.controlnet(lat_in, tt, text_embeds,
-                                         cond_emb=cn_emb,
-                                         conditioning_scale=cn_scale,
-                                         cond=cn_cond)
+                with clock.device_time("controlnet_device_s"):
+                    down, mid = m.controlnet(lat_in, tt, text_embeds,
+                                             cond_emb=cn_emb,
+                                             conditioning_scale=cn_scale,
+                                             cond=cn_cond)
                 step_cond = dataclasses.replace(
                     cond, down_block_residuals=down, mid_block_residual=mid)
-            eps = m.unet(lat_in, tt, text_embeds, step_cond).float()
+            with clock.device_time("unet_device_s"):
+                eps = m.unet(lat_in, tt, text_embeds, step_cond).float()
             eps_uncond, eps_text = eps.chunk(2)
             return eps_uncond + guidance * (eps_text - eps_uncond)
 

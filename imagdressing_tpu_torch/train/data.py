@@ -38,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from imagdressing_tpu_torch.core import profiling
 from imagdressing_tpu_torch.models.clip import CLIP_IMAGE_MEAN, CLIP_IMAGE_STD
 from imagdressing_tpu_torch.runtime import native
 
@@ -49,17 +50,20 @@ def resize(img: np.ndarray, size: Tuple[int, int],
     `Image.resize` with BILINEAR / BICUBIC, whose kernels (a = -0.5 for
     bicubic) and support scaling `F.interpolate(..., antialias=True)` has;
     on a uint8 CPU tensor in channels-last memory it rounds to uint8 after
-    each separable pass as PIL does, so it is within 1 level of PIL."""
+    each separable pass as PIL does, so it is within 1 level of PIL. The
+    span `image.resize` (in_size, out_size as (w, h))."""
     w, h = size
     if img.dtype != np.uint8 or img.ndim != 3:
         raise ValueError(f"resize: expected uint8 (H, W, C), got {img.dtype} "
                          f"{img.shape}")
-    x = torch.from_numpy(np.require(img, requirements=["C", "W"]))
-    x = x.permute(2, 0, 1)[None]
-    x = x.contiguous(memory_format=torch.channels_last)
-    y = F.interpolate(x, size=(h, w), mode=mode, align_corners=False,
-                      antialias=True)
-    return y[0].permute(1, 2, 0).contiguous().numpy()
+    with profiling.span("image.resize", in_size=(img.shape[1], img.shape[0]),
+                        out_size=(w, h)):
+        x = torch.from_numpy(np.require(img, requirements=["C", "W"]))
+        x = x.permute(2, 0, 1)[None]
+        x = x.contiguous(memory_format=torch.channels_last)
+        y = F.interpolate(x, size=(h, w), mode=mode, align_corners=False,
+                          antialias=True)
+        return y[0].permute(1, 2, 0).contiguous().numpy()
 
 
 def clip_preprocess_np(img: np.ndarray, size: int = 224) -> np.ndarray:

@@ -60,6 +60,7 @@ from imagdressing_tpu_torch.apps.tokenizer import (
     HashTokenizer,
     load_tokenizer,
 )
+from imagdressing_tpu_torch.core import profiling
 from imagdressing_tpu_torch.core.config import PRESETS
 from imagdressing_tpu_torch.pipelines import dressing
 from imagdressing_tpu_torch.pipelines.dressing import (
@@ -596,6 +597,60 @@ def test_worker_batches_one_key_and_splits_others(loaded):
                   seed=2, output_uint8=True)
     np.testing.assert_array_equal(results["b"]["image"], want[0])
     np.testing.assert_array_equal(results["c"]["image"], want[1])
+
+
+def _cpu_profile():
+    return torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+def test_image_spans_count_the_files_bytes(tmp_path):
+    """Under a profiler: `image.write` and `image.read` carry the file's
+    bytes (and the pixels read); `image.prepare_garment` encloses its read
+    and resizes."""
+    path = str(tmp_path / "g.png")
+    profiling.clear()
+    with _cpu_profile():
+        iu.write_image(path, garment(0, 90, 70))
+        iu.prepare_garment(path, SIZE, SIZE, clip_size=CLIP_SIZE)
+    spans = profiling.spans()
+    profiling.clear()
+    size = os.path.getsize(path)
+    by = {s["name"]: s for s in spans}
+    assert by["image.write"]["attrs"] == {"bytes": size}
+    assert by["image.read"]["attrs"] == {"bytes": size, "pixels": 90 * 70}
+    prep = by["image.prepare_garment"]
+    resizes = [s for s in spans if s["name"] == "image.resize"]
+    assert len(resizes) == 4  # resize_img's two, the VAE and CLIP views
+    assert {s["parent"] for s in resizes + [by["image.read"]]} == {prep["id"]}
+    assert ((SIZE, SIZE) in [s["attrs"]["out_size"] for s in resizes])
+    assert by["image.write"]["parent"] is None
+
+
+class _StubPipe:
+    models = None
+
+    def __call__(self, **kw):
+        return np.zeros((kw["ref_image"].shape[0], 8, 8, 3), np.uint8)
+
+
+def test_a_served_request_shares_its_trace_id():
+    """The worker's `serve.queue` (put to the round's start) and
+    `serve.round` spans of one request carry its trace_id."""
+    worker = serve.InferenceWorker(_StubPipe(), HashTokenizer(256),
+                                   max_batch=2)
+    profiling.clear()
+    with _cpu_profile():
+        result = worker.submit(_payload(1), trace_id=41)
+    assert result["image"].shape == (8, 8, 3)
+    _wait(lambda: any(s["name"] == "serve.round"
+                      for s in profiling.spans()))
+    by = {s["name"]: s for s in profiling.spans()}
+    profiling.clear()
+    queue, round_ = by["serve.queue"], by["serve.round"]
+    assert queue["trace_id"] == round_["trace_id"] == 41
+    assert round_["attrs"] == {"batch": 1, "trace_ids": [41]}
+    assert queue["t0"] <= queue["t1"] <= round_["t0"] <= round_["t1"]
 
 
 def _invert(img01, payload):

@@ -32,6 +32,7 @@ tests/test_torch_presets.py stack`; `test_small_stack_golden_is_current`
 import copy
 import dataclasses
 import os
+import time
 
 import jax
 import jax.numpy as jnp
@@ -53,6 +54,7 @@ from imagdressing_tpu.samplers import ddim as jddim
 from imagdressing_tpu.samplers import dpm as jdpm
 from imagdressing_tpu.samplers import unipc as junipc
 from imagdressing_tpu_torch.convert import params_from_jax, state_dict_from_jax
+from imagdressing_tpu_torch.core import profiling
 from imagdressing_tpu_torch.core.config import PRESETS, UNetConfig
 from imagdressing_tpu_torch.models.conditioning import Conditioning, fold_lora
 from imagdressing_tpu_torch.models.controlnet import ControlNet
@@ -602,6 +604,59 @@ def test_batch_of_two_equals_two_single_runs(stacks):
     for row in range(2):
         one = {k: v[row:row + 1] for k, v in _inputs(b=2, seed=3).items()}
         np.testing.assert_allclose(both[row:row + 1], pipe(**one), atol=1e-5)
+
+
+# `last_stage_seconds`' keys, in order, by preset
+STAGES = {
+    "basic": ["text", "garment_tokens", "vae_encode", "garment_unet",
+              "kv_precompute", "denoise", "vae_decode"],
+    "pose": ["text", "garment_tokens", "vae_encode", "garment_unet",
+             "kv_precompute", "control_embedding", "denoise", "vae_decode"],
+    "inpaint": ["text", "garment_tokens", "vae_encode", "garment_unet",
+                "kv_precompute", "person_encode", "control_embedding",
+                "denoise", "vae_decode"],
+}
+
+
+@pytest.mark.parametrize("preset", sorted(STAGES))
+def test_stage_seconds_keep_their_keys_and_order(stacks, preset):
+    """Each stage's seconds (the host's on the CPU), in the stages' order;
+    together within the call's wall."""
+    _, port, _ = stacks
+    pipe = DressingPipeline(port, _preset(PRESETS, preset), device="cpu")
+    t0 = time.perf_counter()
+    pipe(**_inputs(), num_inference_steps=2)
+    wall = time.perf_counter() - t0
+    assert list(pipe.last_stage_seconds) == STAGES[preset]
+    assert min(pipe.last_stage_seconds.values()) >= 0
+    assert sum(pipe.last_stage_seconds.values()) <= wall
+
+
+@pytest.mark.parametrize("sampler", ["ddim", "unipc"])
+def test_a_traced_call_records_its_stages_and_steps(stacks, sampler):
+    """Under a profiler a call records one `pipeline.call` span, whose
+    children are its stages in order, and a `denoise.step` span a step
+    under the `denoise` stage; on the CPU no device time."""
+    _, port, _ = stacks
+    pipe = DressingPipeline(port, _preset(PRESETS, "pose", sampler=sampler),
+                            device="cpu")
+    profiling.clear()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        pipe(**_inputs(b=2), num_inference_steps=2)
+    spans = profiling.spans()
+    profiling.clear()
+    [call] = [s for s in spans if s["name"] == "pipeline.call"]
+    assert call["attrs"] == {"batch": 2, "steps": 2, "preset": "pose"}
+    stages = [s for s in spans if s["parent"] == call["id"]]
+    assert [s["name"] for s in stages] == STAGES["pose"]
+    denoise = stages[STAGES["pose"].index("denoise")]
+    steps = [s for s in spans if s["name"] == "denoise.step"]
+    assert len(steps) == 2
+    for s in steps:
+        assert s["parent"] == denoise["id"]
+        assert denoise["t0"] <= s["t0"] <= s["t1"] <= denoise["t1"]
+        assert "controlnet_device_s" not in s["attrs"]
 
 
 def test_fresh_controlnet_adds_nothing():

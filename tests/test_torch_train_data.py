@@ -264,12 +264,86 @@ def test_step_timer_splits_data_and_step_time(monkeypatch):
     assert timer.metrics() == {"data_time": 0.25, "step_time": 0.75}
 
 
-def test_annotate_and_trace_record_a_named_region(tmp_path):
+@pytest.fixture
+def no_spans():
+    profiling.clear()
+    yield
+    profiling.clear()
+
+
+def _cpu_profile():
     import torch
 
+    return torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+def test_annotate_and_trace_record_a_named_region(tmp_path, no_spans):
+    """A span records nothing with no profiler session; under
+    `profiling.trace` it is a named region of the trace and a record of
+    `profiling.spans()` with its attributes."""
+    import torch
+
+    with profiling.span("igpair_step", batch=2) as off:
+        torch.ones(4).sum()
+        off.set(pixels=6)
+    assert profiling.spans() == []
     with profiling.trace(str(tmp_path)) as prof:
-        with profiling.annotate("igpair_step"):
+        with profiling.span("igpair_step", batch=2) as sp:
             torch.ones(4).sum()
+            sp.set(pixels=6)
     names = {e.key for e in prof.key_averages()}
     assert "igpair_step" in names
     assert (tmp_path / "trace.json").exists()
+    [s] = profiling.spans()
+    assert s["name"] == "igpair_step" and s["parent"] is None
+    assert s["attrs"] == {"batch": 2, "pixels": 6} and s["t0"] <= s["t1"]
+
+
+def test_spans_nest_per_thread_and_share_their_trace_id(no_spans):
+    """Parent and trace_id come from the enclosing span of the same thread
+    (an explicit trace_id wins); a thread other than the profiler's records
+    too, as a root of its own."""
+    import threading
+
+    def other():
+        with profiling.span("other"):
+            pass
+
+    with _cpu_profile():
+        with profiling.span("outer", trace_id=7):
+            with profiling.span("inner"):
+                pass
+            profiling.record("past", 1.0, 2.0, n=3)
+            with profiling.span("own", trace_id=8):
+                pass
+            t = threading.Thread(target=other)
+            t.start()
+            t.join(30)
+    assert not t.is_alive()
+    assert profiling.record("past", 1.0, 2.0) is None  # no session
+    got = profiling.spans()
+    assert [s["name"] for s in got] == ["inner", "past", "own", "other",
+                                        "outer"]
+    by = {s["name"]: s for s in got}
+    outer = by["outer"]
+    assert outer["parent"] is None and outer["trace_id"] == 7
+    for name, trace_id in (("inner", 7), ("past", 7), ("own", 8)):
+        assert by[name]["parent"] == outer["id"], name
+        assert by[name]["trace_id"] == trace_id, name
+    assert (by["past"]["t0"], by["past"]["t1"]) == (1.0, 2.0)
+    assert by["past"]["attrs"] == {"n": 3}
+    assert by["other"]["parent"] is None and by["other"]["trace_id"] is None
+    assert by["other"]["thread"] != outer["thread"]
+
+
+def test_the_span_buffer_keeps_the_newest(monkeypatch, no_spans):
+    import collections
+
+    assert profiling._spans.maxlen == profiling.SPAN_BUFFER
+    monkeypatch.setattr(profiling, "_spans", collections.deque(maxlen=3))
+    with _cpu_profile():
+        for i in range(5):
+            with profiling.span(f"s{i}"):
+                pass
+    assert [s["name"] for s in profiling.spans()] == ["s2", "s3", "s4"]
