@@ -12,7 +12,7 @@ JPEG and the other formats go through PIL where it is installed, and raise
 a RuntimeError naming the format where it is not.
 
 Spans (`core.profiling.span`, recorded while a profiler session runs):
-`image.read` (bytes, pixels), `image.write` (bytes) and
+`image.read` (bytes, pixels, decoder), `image.write` (bytes) and
 `image.prepare_garment` (the parent of its read and resizes); the resizes
 are `image.resize` (`train/data.py`).
 """
@@ -25,7 +25,8 @@ from typing import List, Optional, Tuple, Union
 
 import numpy as np
 
-from imagdressing_tpu_torch.apps.png import SIGNATURE, decode_png, encode_png
+from imagdressing_tpu_torch.apps.png import (SIGNATURE, decode_png, decoder,
+                                             encode_png)
 from imagdressing_tpu_torch.core import profiling
 from imagdressing_tpu_torch.train.data import clip_preprocess_np, resize
 
@@ -57,7 +58,10 @@ def to_rgb(img: np.ndarray) -> np.ndarray:
 
 
 def read_image(src: Union[str, bytes]) -> np.ndarray:
-    """A file path or the file's bytes -> uint8 RGB (H, W, 3)."""
+    """A file path or the file's bytes -> uint8 RGB (H, W, 3). Its
+    `image.read` span records bytes, pixels and the `decoder`: "native"
+    (PNG, the C++ unfilter), "numpy" (PNG, the fallback) or "pil" (every
+    other format)."""
     with profiling.span("image.read") as sp:
         if isinstance(src, (str, os.PathLike)):
             with open(src, "rb") as f:
@@ -66,10 +70,13 @@ def read_image(src: Union[str, bytes]) -> np.ndarray:
             data = bytes(src)
         if data[:8] == SIGNATURE:
             img = to_rgb(decode_png(data))
+            used = decoder()
         else:
             image = _pil("reading a non-PNG image (JPEG, ...)")
             img = np.asarray(image.open(io.BytesIO(data)).convert("RGB"))
-        sp.set(bytes=len(data), pixels=img.shape[0] * img.shape[1])
+            used = "pil"
+        sp.set(bytes=len(data), pixels=img.shape[0] * img.shape[1],
+               decoder=used)
         return img
 
 

@@ -8,24 +8,53 @@ gray+alpha, RGB or RGBA.
 
 Unfiltering: the Sub, Average and Paeth filters predict a byte from the
 one to its left, so a row is sequential in x, and each row depends on the
-row above. Pixel (y, x) depends only on (y, x-1), (y-1, x) and (y-1, x-1),
-so every pixel of an anti-diagonal y + x = t is independent of the others:
-`_unfilter` stores the image skewed (pixel (y, x) at column y + x), where
-an anti-diagonal is one column, and reconstructs one column per step with
-numpy, whatever the mix of filters: H + W - 1 vectorised steps instead of
-H * W scalar ones.
+row above. Two implementations give the same bytes for every file:
+
+  * the C++ one, `runtime/csrc/png_unfilter.cpp` (`runtime.native.PNG`,
+    linked with nothing, called through ctypes, which releases the GIL):
+    the specification's filters row by row, Average and Paeth a pixel a
+    step on SSE vectors. It runs wherever the library builds; it is built
+    (on a checkout's first use) or loaded when this module is imported, so
+    that no g++ run lands inside a timed decode;
+  * the numpy one, `_unfilter`, where the library cannot be built (no
+    g++). Pixel (y, x) depends only on (y, x-1), (y-1, x) and (y-1, x-1),
+    so every pixel of an anti-diagonal y + x = t is independent of the
+    others: it stores the image skewed (pixel (y, x) at column y + x),
+    where an anti-diagonal is one column, and reconstructs one column per
+    step, whatever the mix of filters: H + W - 1 vectorised steps instead
+    of H * W scalar ones.
+
+`decoder()` names the one that runs. The chunk parsing, CRC checks,
+inflate, sub-byte and palette expansion and every error are shared.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 import zlib
+from typing import Optional
 
 import numpy as np
+
+from imagdressing_tpu_torch.runtime import native
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # color type -> samples per pixel
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def _load() -> Optional[ctypes.CDLL]:
+    """The C++ unfilter's library, or None where it cannot be built."""
+    return native.PNG.load()
+
+
+_load()  # build or load it now, not inside the first decode
+
+
+def decoder() -> str:
+    """The unfilter `decode_png` runs: "native" (C++) or "numpy"."""
+    return "numpy" if _load() is None else "native"
 
 
 def _chunks(data: bytes):
@@ -86,6 +115,20 @@ def _unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
     return recon[ys + 1, cols].astype(np.uint8).reshape(h, n * bpp)
 
 
+def _unfilter_native(lib: ctypes.CDLL, rows: np.ndarray,
+                     bpp: int) -> np.ndarray:
+    """`_unfilter` in C++: the same bytes, the same error."""
+    rows = np.ascontiguousarray(rows, np.uint8)
+    h, stride = rows.shape
+    out = np.empty((h, stride - 1), np.uint8)
+    rc = lib.igd_png_unfilter(rows.ctypes.data, h, stride - 1, bpp,
+                              out.ctypes.data)
+    if rc:
+        raise ValueError(f"PNG row filter {rc}" if rc > 0 else
+                         f"PNG rows of {stride - 1} bytes at {bpp} a pixel")
+    return out
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """PNG bytes -> uint8 (H, W, C): C = 1 gray, 2 gray + alpha, 3 RGB
     (palette images through their PLTE), 4 RGBA. Gray at 1, 2 or 4 bits is
@@ -115,7 +158,10 @@ def decode_png(data: bytes) -> np.ndarray:
     if len(raw) != h * (row_bytes + 1):
         raise ValueError(f"PNG data: {len(raw)} bytes for {w}x{h}")
     rows = np.frombuffer(raw, np.uint8).reshape(h, row_bytes + 1)
-    px = _unfilter(rows, max(1, ch * depth // 8))
+    bpp = max(1, ch * depth // 8)
+    lib = _load()
+    px = (_unfilter(rows, bpp) if lib is None
+          else _unfilter_native(lib, rows, bpp))
     if depth < 8:
         px = np.unpackbits(px, axis=1).reshape(h, -1, depth)[:, :w]
         px = (px * (1 << np.arange(depth - 1, -1, -1))).sum(-1).astype(

@@ -1,14 +1,22 @@
-"""ctypes binding and build-at-first-use of the C++ image runtime (port of
+"""ctypes bindings and build-at-first-use of the C++ image runtime (port of
 `imagdressing_tpu/runtime/native.py`).
 
-`csrc/image_ops.cpp` (libjpeg decode, PIL's triangle resize, crop and
-normalize, the CLIP view) is built with g++ at first use into
-`imagdressing_tpu_torch/_build/` (gitignored), named by a hash of the source
-and flags so that an edited source is rebuilt; the JAX package builds its
-copy beside the source instead. This is host code: the training data
-pipeline decodes on the CPU whatever device trains. Without g++ or libjpeg
-the build fails, `available()` is False and every function returns None:
-the dataset then decodes with PIL and resizes with `train.data.resize`.
+Two libraries, each one source of `csrc/` built with g++ into its own
+shared library in `imagdressing_tpu_torch/_build/` (gitignored), named by a
+hash of the source and flags so that an edited source is rebuilt (the JAX
+package builds its copy beside the source instead):
+
+  * `IMAGE_OPS`, `csrc/image_ops.cpp`, linked with `-ljpeg`: libjpeg
+    decode, PIL's triangle resize, crop and normalize, the CLIP view. The
+    training data pipeline decodes on the CPU whatever device trains.
+    Without g++ or libjpeg the build fails, `available()` is False and
+    every function below returns None: the dataset then decodes with PIL
+    and resizes with `train.data.resize`;
+  * `PNG`, `csrc/png_unfilter.cpp`, linked with nothing: the PNG row
+    filters for `apps/png.py`, which falls back to numpy where it cannot
+    be built (no g++). A host without libjpeg keeps it.
+
+This is host code; each library is built or loaded once per process.
 """
 
 from __future__ import annotations
@@ -19,75 +27,103 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "image_ops.cpp"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
-LIBS = ("-ljpeg",)
 MAX_SIDE = 8192
 
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-_failed = False
 _tls = threading.local()
 
 
-def lib_path() -> Path:
-    h = hashlib.sha256(" ".join(FLAGS + LIBS).encode())
-    h.update(SOURCE.read_bytes())
-    return BUILD_DIR / f"image_ops-{h.hexdigest()[:16]}.so"
+class Library:
+    """One source of `csrc/` built into its own shared library with the
+    given libraries linked; `load()` builds it on the checkout's first use
+    and returns the loaded library (its signatures set by `bind`), or None
+    where it cannot be built or loaded."""
+
+    def __init__(self, source: str, libs: Tuple[str, ...],
+                 bind: Callable[[ctypes.CDLL], None]):
+        self.source = CSRC / source
+        self.libs = libs
+        self._bind = bind
+        self._lock = threading.Lock()
+        self._lib: Optional[ctypes.CDLL] = None
+        self._failed = False
+
+    def path(self) -> Path:
+        h = hashlib.sha256(" ".join(FLAGS + self.libs).encode())
+        h.update(self.source.read_bytes())
+        return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
+
+    def _build(self, out: Path) -> bool:
+        """g++ into a temporary name, then an atomic rename: processes that
+        build at once never load a half-written library."""
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = ["g++", *FLAGS, str(self.source), "-o", str(tmp), *self.libs]
+        try:
+            subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        except (OSError, subprocess.SubprocessError):
+            tmp.unlink(missing_ok=True)
+            return False
+        os.replace(tmp, out)
+        return True
+
+    def load(self) -> Optional[ctypes.CDLL]:
+        if self._lib is not None or self._failed:
+            return self._lib
+        with self._lock:
+            if self._lib is not None or self._failed:
+                return self._lib
+            out = self.path()
+            if not out.exists() and not self._build(out):
+                self._failed = True
+                return None
+            try:
+                lib = ctypes.CDLL(str(out))
+            except OSError:
+                self._failed = True
+                return None
+            self._bind(lib)
+            self._lib = lib
+            return lib
 
 
-def _build(out: Path) -> bool:
-    """g++ into a temporary name, then an atomic rename: processes that
-    build at once never load a half-written library."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = ["g++", *FLAGS, str(SOURCE), "-o", str(tmp), *LIBS]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-    except (OSError, subprocess.SubprocessError):
-        tmp.unlink(missing_ok=True)
-        return False
-    os.replace(tmp, out)
-    return True
+def _bind_image_ops(lib: ctypes.CDLL) -> None:
+    lib.igd_jpeg_decode.restype = ctypes.c_int
+    lib.igd_jpeg_decode.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+    ]
+    lib.igd_resize_crop_normalize.restype = ctypes.c_int
+    lib.igd_resize_crop_normalize.argtypes = [
+        ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.igd_clip_preprocess.restype = ctypes.c_int
+    lib.igd_clip_preprocess.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+
+
+def _bind_png(lib: ctypes.CDLL) -> None:
+    lib.igd_png_unfilter.restype = ctypes.c_int
+    lib.igd_png_unfilter.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+
+
+IMAGE_OPS = Library("image_ops.cpp", ("-ljpeg",), _bind_image_ops)
+PNG = Library("png_unfilter.cpp", (), _bind_png)
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    global _lib, _failed
-    if _lib is not None or _failed:
-        return _lib
-    with _lock:
-        if _lib is not None or _failed:
-            return _lib
-        out = lib_path()
-        if not out.exists() and not _build(out):
-            _failed = True
-            return None
-        try:
-            lib = ctypes.CDLL(str(out))
-        except OSError:
-            _failed = True
-            return None
-        lib.igd_jpeg_decode.restype = ctypes.c_int
-        lib.igd_jpeg_decode.argtypes = [
-            ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-        ]
-        lib.igd_resize_crop_normalize.restype = ctypes.c_int
-        lib.igd_resize_crop_normalize.argtypes = [
-            ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        lib.igd_clip_preprocess.restype = ctypes.c_int
-        lib.igd_clip_preprocess.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
-        _lib = lib
-        return _lib
+    return IMAGE_OPS.load()
 
 
 def available() -> bool:

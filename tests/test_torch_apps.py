@@ -52,6 +52,7 @@ from imagdressing_tpu.apps.tokenizer import CLIPTokenizer as JaxCLIPTokenizer
 from imagdressing_tpu.apps.tokenizer import HashTokenizer as JaxHashTokenizer
 from imagdressing_tpu.train.data import clip_preprocess_np as jax_clip_prep
 from imagdressing_tpu_torch.apps import image_utils as iu
+from imagdressing_tpu_torch.apps import png
 from imagdressing_tpu_torch.apps import serve
 from imagdressing_tpu_torch.apps.loader import load_dressing_models
 from imagdressing_tpu_torch.apps.png import decode_png, encode_png
@@ -243,6 +244,20 @@ def _filter_row(row, prev, kind, bpp):
     return bytes(out)
 
 
+def png_file(w, h, depth, ctype, raw, palette=None) -> bytes:
+    """A PNG of the filtered rows `raw` (each led by its filter byte)."""
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    plte = b"" if palette is None else chunk(b"PLTE", palette.tobytes())
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0,
+                                         0, 0))
+            + plte + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
 def test_png_decode_every_row_filter():
     """Rows filtered None, Sub, Up, Average, Paeth in turn: the decode is
     the image, as PIL's is."""
@@ -254,13 +269,7 @@ def test_png_decode_every_row_filter():
         raw += bytes([y % 5]) + _filter_row(row, prev, y % 5, 3)
         prev = row
 
-    def chunk(kind, body):
-        return (struct.pack(">I", len(body)) + kind + body
-                + struct.pack(">I", zlib.crc32(kind + body)))
-
-    data = (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+    data = png_file(w, h, 8, 2, raw)
     np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(data))),
                                   img)
     np.testing.assert_array_equal(decode_png(data), img)
@@ -289,6 +298,78 @@ def test_png_rejects_what_it_cannot_read():
     sixteen = pil_png(np.arange(64, dtype=np.uint16).reshape(8, 8) * 999)
     with pytest.raises(ValueError, match="16-bit"):
         decode_png(sixteen)
+
+
+def _random_rows(rng, h, row_bytes, kind=None):
+    """Random filtered rows; filter `kind` on every row, or a random mix."""
+    rows = rng.integers(0, 256, (h, 1 + row_bytes), dtype=np.uint8)
+    rows[:, 0] = rng.integers(0, 5, h) if kind is None else kind
+    return rows
+
+
+@pytest.mark.parametrize("bpp", [1, 2, 3, 4])
+def test_png_native_unfilter_matches_numpy(bpp):
+    """The C++ unfilter gives the numpy one's bytes: every filter alone and
+    a random mix per row, widths 1, even and odd, heights 1 and more."""
+    lib = png._load()
+    assert lib is not None and png.decoder() == "native"
+    rng = np.random.default_rng(bpp)
+    for w in (1, 2, 5, 33):
+        for h in (1, 7):
+            for kind in (0, 1, 2, 3, 4, None):
+                rows = _random_rows(rng, h, w * bpp, kind)
+                np.testing.assert_array_equal(
+                    png._unfilter_native(lib, rows, bpp),
+                    png._unfilter(rows, bpp))
+
+
+@pytest.mark.parametrize("depth,ctype", [(1, 0), (2, 0), (4, 0), (4, 3),
+                                         (8, 3)])
+def test_png_sub_byte_and_palette_decode_alike_on_both_paths(
+        depth, ctype, monkeypatch):
+    """Gray at 1, 2 and 4 bits and palette files, odd width, random rows
+    with a random mix of filters: the same pixels through the C++ unfilter
+    and the numpy one."""
+    rng = np.random.default_rng(depth + ctype)
+    w, h = 13, 6
+    rows = _random_rows(rng, h, (w * depth + 7) // 8)
+    palette = (rng.integers(0, 256, (1 << depth, 3), dtype=np.uint8)
+               if ctype == 3 else None)
+    data = png_file(w, h, depth, ctype, rows.tobytes(), palette)
+    native = decode_png(data)
+    monkeypatch.setattr(png, "_load", lambda: None)
+    assert png.decoder() == "numpy"
+    np.testing.assert_array_equal(decode_png(data), native)
+
+
+@pytest.mark.parametrize("path", ["native", "numpy"])
+def test_png_adaptive_filter_garment_matches_pil(path, monkeypatch):
+    """A PIL-written garment (adaptive filters: Sub, Up and Paeth rows)
+    decodes to PIL's pixels through the C++ unfilter, and through the
+    numpy one where the library is unavailable."""
+    img = garment(5, 120, 90)
+    data = pil_png(img)
+    raw = zlib.decompress(b"".join(body for kind, body in png._chunks(data)
+                                   if kind == b"IDAT"))
+    kinds = set(np.frombuffer(raw, np.uint8).reshape(120, -1)[:, 0])
+    assert {1, 2, 4} <= kinds
+    if path == "numpy":
+        monkeypatch.setattr(png, "_load", lambda: None)
+    assert png.decoder() == path
+    np.testing.assert_array_equal(decode_png(data), img)
+    np.testing.assert_array_equal(
+        decode_png(data), np.asarray(Image.open(io.BytesIO(data))))
+
+
+@pytest.mark.parametrize("path", ["native", "numpy"])
+def test_png_filter_above_four_raises_on_both_paths(path, monkeypatch):
+    rows = np.zeros((3, 1 + 4 * 3), np.uint8)
+    rows[1, 0] = 5
+    data = png_file(4, 3, 8, 2, rows.tobytes())
+    if path == "numpy":
+        monkeypatch.setattr(png, "_load", lambda: None)
+    with pytest.raises(ValueError, match="PNG row filter 5"):
+        decode_png(data)
 
 
 # ---------------------------------------------------------------------------
@@ -618,13 +699,34 @@ def test_image_spans_count_the_files_bytes(tmp_path):
     size = os.path.getsize(path)
     by = {s["name"]: s for s in spans}
     assert by["image.write"]["attrs"] == {"bytes": size}
-    assert by["image.read"]["attrs"] == {"bytes": size, "pixels": 90 * 70}
+    assert by["image.read"]["attrs"] == {"bytes": size, "pixels": 90 * 70,
+                                         "decoder": "native"}
     prep = by["image.prepare_garment"]
     resizes = [s for s in spans if s["name"] == "image.resize"]
     assert len(resizes) == 4  # resize_img's two, the VAE and CLIP views
     assert {s["parent"] for s in resizes + [by["image.read"]]} == {prep["id"]}
     assert ((SIZE, SIZE) in [s["attrs"]["out_size"] for s in resizes])
     assert by["image.write"]["parent"] is None
+
+
+@pytest.mark.parametrize("decoder", ["native", "numpy", "pil"])
+def test_read_image_records_its_decoder(decoder, monkeypatch):
+    """`image.read`'s `decoder`: the C++ unfilter, the numpy fallback
+    (library unavailable) or PIL (not a PNG)."""
+    img = garment(6, 16, 12)
+    data = encode_png(img)
+    if decoder == "numpy":
+        monkeypatch.setattr(png, "_load", lambda: None)
+    elif decoder == "pil":
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format="BMP")
+        data = buf.getvalue()
+    profiling.clear()
+    with _cpu_profile():
+        np.testing.assert_array_equal(iu.read_image(data), img)
+    reads = [s for s in profiling.spans() if s["name"] == "image.read"]
+    profiling.clear()
+    assert [s["attrs"]["decoder"] for s in reads] == [decoder]
 
 
 class _StubPipe:
